@@ -4,8 +4,9 @@ path).
 The KNN graph comes from brute-force distance GEMMs in row chunks on the
 device (exact, full fp32), then a host pass adds reverse edges with the
 reference's numpy random stream, then the cache tier is warmed with the
-highest in-degree vectors. The partitioned build, ``rank_based_reorder``
-and the tiered backend are not ported yet.
+highest in-degree vectors. ``build_tiered_backend`` spills the graph to
+the disk tier. The partitioned build and ``rank_based_reorder`` are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core.tiers import DiskTier, TieredBackend, TieredStore
 from repro_torch.core.topk import largest_k, smallest_k
 from repro_torch.core.types import (GraphState, IndexState, init_cache_state,
                                     init_graph_state, init_stats)
@@ -140,3 +142,25 @@ def build_index(vectors, degree=32, cache_slots=1024, n_max=None,
         c.slot_hid[:m] = top.to(torch.int32)
         c.h2d[top] = torch.arange(m, dtype=torch.int32, device=dev)
     return IndexState(graph=g, cache=c, stats=init_stats(dev))
+
+
+def build_tiered_backend(vectors, degree, disk_path, *, disk_capacity=None,
+                         host_window=None, device=None, timings=None, **kw):
+    """Build the full graph on ``device``, spill vectors and rows to the
+    disk tier and return a ``tiers.TieredBackend`` (paper Fig. 11: the
+    GPU-CPU-disk form of the index). Only the per-id metadata (alive,
+    e_in, version) stays host-resident afterwards."""
+    vectors = np.asarray(vectors, np.float32)
+    n, dim = vectors.shape
+    cap = disk_capacity or n
+    if cap < n:
+        raise ValueError(f"disk_capacity {cap} < initial dataset {n}")
+    window = host_window or max(64, cap // 4)
+    g = build_graph(vectors, degree, n_max=n, device=device, timings=timings,
+                    **kw)
+    disk = DiskTier(disk_path, cap, dim, degree)
+    disk.write(np.arange(n), vectors, g.nbrs[:n].cpu().numpy())
+    backend = TieredBackend(TieredStore(disk, window), n)
+    backend.alive[:n] = g.alive[:n].cpu().numpy()
+    backend.e_in[:n] = g.e_in[:n].cpu().numpy()
+    return backend

@@ -1,15 +1,18 @@
-"""Serving engine, device mode (twin of ``repro.core.engine``).
+"""Serving engine (twin of ``repro.core.engine``).
 
 ``EngineConfig`` keeps every field of the reference plus ``device``;
 ``CoalescingScheduler`` (cross-query micro-batching through the SLO
 serving tier, ``core/slo.py``) is the reference's, unchanged.
-``SVFusionEngine`` serves searches from a device-resident index: the
-coalescer's dispatcher thread runs the frontier executor and the WAVP
-placement pass, and publishes the new cache tier under the state lock,
-so concurrent searches read the last published snapshot.
+``SVFusionEngine`` serves searches in device mode from a device-resident
+index, or in three-tier mode (``disk_path``) from a disk-backed store
+with a host window, optionally with the PQ code lane and the fused
+topology executor. The coalescer's dispatcher thread runs the executor
+and the WAVP placement pass, and publishes the new cache tier under a
+lock, so concurrent searches read the last published snapshot.
 """
 from __future__ import annotations
 
+import os
 import threading
 import time
 from dataclasses import dataclass, field
@@ -19,10 +22,13 @@ import numpy as np
 import torch
 
 from repro_torch.core import cache as Cache
-from repro_torch.core import slo
-from repro_torch.core.build import build_index
-from repro_torch.core.search import search_batch
-from repro_torch.core.types import IndexState, SearchParams
+from repro_torch.core import quant, slo
+from repro_torch.core.build import build_index, build_tiered_backend
+from repro_torch.core.search import (effective_rerank_depth, search_batch,
+                                     search_tiered)
+from repro_torch.core.tiers import probe_fetch_latency
+from repro_torch.core.types import (IndexState, SearchParams,
+                                    init_graph_state, init_stats)
 
 
 @dataclass
@@ -373,13 +379,21 @@ class CoalescingScheduler:
 
 
 class SVFusionEngine:
-    """Thread-safe SANNS engine over the functional core, device mode.
+    """Thread-safe SANNS engine over the functional core.
 
-    The capacity tier is the device-resident ``GraphState``; searches run
-    the hop-batched frontier executor (``core.search``) through the
-    coalescing scheduler, then the WAVP placement pass (``core.cache``)
-    publishes the new cache tier. The three-tier (disk) mode, the PQ
-    code lane, filtered search and the write path are not ported yet:
+    * **device mode** (default): the capacity tier is the device-resident
+      ``GraphState``; searches run the hop-batched frontier executor
+      (``core.search``) through the coalescing scheduler, then the WAVP
+      placement pass (``core.cache``) publishes the new cache tier.
+    * **three-tier mode** (``cfg.disk_path``): the capacity tier is a
+      ``TieredStore`` host window over disk memmaps; searches cascade
+      device cache -> host window -> disk through ``search_tiered``, with
+      the PQ code lane and the fused topology executor when
+      ``cfg.pq_enabled``, and the host placement pass runs after each
+      batch. It needs ``wal_enabled=False``: durability is not ported
+      yet.
+
+    Filtered search, the write path and durability are not ported yet:
     asking for them raises ``NotImplementedError`` naming the ROADMAP
     item.
     """
@@ -387,35 +401,46 @@ class SVFusionEngine:
     def __init__(self, init_vectors, cfg: EngineConfig, init_attrs=None):
         self.cfg = cfg
         self.device = torch.device(cfg.device)
-        if cfg.disk_path:
-            raise NotImplementedError(
-                "three-tier mode (disk_path) is not ported yet: ROADMAP "
-                "queue A.4")
-        if cfg.pq_enabled:
-            raise NotImplementedError(
-                "the PQ code lane (pq_enabled) is not ported yet: ROADMAP "
-                "queue A.3")
+        if cfg.pq_enabled and not cfg.disk_path:
+            raise ValueError(
+                "pq_enabled requires the three-tier mode (set disk_path): "
+                "the PQ code lane rides the tiered executor")
         if cfg.attributes is not None or init_attrs is not None:
             raise NotImplementedError(
                 "filtered search (attributes) is not ported yet: ROADMAP "
                 "queue A.9")
-        if init_vectors is None:
-            raise ValueError("device mode has no durable state to "
-                             "recover: init_vectors is required")
         self._key = torch.Generator(device=self.device)
         self._key.manual_seed(cfg.seed)
         self._state_lock = threading.RLock()   # publish/subscribe
         self._cache_lock = threading.Lock()
+        self._backend = None                   # TieredBackend in 3-tier mode
+        self._placement = None                 # HostPlacement in 3-tier mode
+        self._rng = np.random.default_rng(cfg.seed)
+        self._spec_rank = cfg.spec_rank        # resolved by the tiered probe
+        self._spec_probe_us = None
         self.build_timings: dict = {}
-        self._state = build_index(
-            init_vectors, degree=cfg.degree, cache_slots=cfg.cache_slots,
-            n_max=cfg.capacity, device=self.device,
-            timings=self.build_timings)
+        if cfg.disk_path:
+            self._init_tiered(init_vectors, cfg)
+        else:
+            if init_vectors is None:
+                raise ValueError("device mode has no durable state to "
+                                 "recover: init_vectors is required")
+            self._state = build_index(
+                init_vectors, degree=cfg.degree, cache_slots=cfg.cache_slots,
+                n_max=cfg.capacity, device=self.device,
+                timings=self.build_timings)
         self._stale_state = self._state
         self._ops_since_refresh = 0
         self._update_batches = 0
         self._consolidations = 0
-        self.host_syncs = 0            # executor device-to-host reads
+        self.host_syncs = 0            # device-mode executor reads
+        self._search_rounds = 0        # tiered executor round accounting
+        self._search_dispatches = 0    # device dispatches issued by search
+        self._search_batches = 0
+        self._spec_hits = 0            # speculative-pipeline frontier hits
+        self._spec_misses = 0
+        self._topo_hits = 0            # fused-loop topology-cache hits
+        self._topo_misses = 0
         self._coalescer = (CoalescingScheduler(
             self._search_exec, max_batch=cfg.coalesce_max_batch,
             max_window=cfg.coalesce_window,
@@ -431,6 +456,81 @@ class SVFusionEngine:
             if cfg.coalesce else None)
         self.latencies: dict[str, list] = {"search": [], "insert": [],
                                            "delete": []}
+
+    def _init_tiered(self, init_vectors, cfg: EngineConfig):
+        if cfg.wal_enabled:
+            raise NotImplementedError(
+                "durability (wal_enabled with disk_path) is not ported yet: "
+                "ROADMAP queue A.8; pass wal_enabled=False")
+        if os.path.exists(os.path.join(cfg.disk_path, "manifest.json")):
+            raise NotImplementedError(
+                "disk_path holds a published durable index; recovering it "
+                "is not ported yet: ROADMAP queue A.8")
+        if init_vectors is None or not len(init_vectors):
+            raise ValueError("three-tier mode needs init_vectors to build "
+                             "from (recovery is not ported)")
+        init_vectors = np.asarray(init_vectors, np.float32)
+        if len(init_vectors) < 2 * cfg.degree:
+            raise ValueError("three-tier mode needs >= 2*degree seed "
+                             "vectors to bootstrap the graph")
+        if cfg.cache_dtype not in ("bf16", "fp32"):
+            raise ValueError(f"cache_dtype must be bf16|fp32, got "
+                             f"{cfg.cache_dtype!r}")
+        n, dim = init_vectors.shape
+        cap = cfg.disk_capacity or cfg.capacity
+        self._backend = build_tiered_backend(
+            init_vectors, cfg.degree, cfg.disk_path, disk_capacity=cap,
+            host_window=cfg.host_window, seed=cfg.seed,
+            n_partitions=cfg.build_partitions,
+            cross_samples=cfg.build_cross_samples, device=self.device,
+            timings=self.build_timings)
+        self._placement = Cache.HostPlacement(
+            cap, cfg.cache_slots, dim,
+            dtype=torch.bfloat16 if cfg.cache_dtype == "bf16"
+            else torch.float32)
+        if cfg.pq_enabled:
+            # train per-subspace Lloyd codebooks on a sample, encode the
+            # seed set, attach the unconditionally resident code lane
+            t0 = time.perf_counter()
+            m = quant.choose_m(dim, cfg.pq_m)
+            cb = quant.train_codebook(
+                init_vectors, m, cfg.pq_bits, iters=cfg.pq_train_iters,
+                sample=cfg.pq_train_sample, seed=cfg.seed,
+                device=self.device)
+            self._backend.attach_pq(quant.PQCodes(
+                cb, cap, codes=quant.encode(cb, init_vectors)))
+            self.build_timings["pq_s"] = time.perf_counter() - t0
+            if cfg.topo_cache_slots >= 0:
+                # topology tier for the fused executor; 0 slots -> full
+                # residency, warmed so the first batch is already fused
+                Cache.warm_topo_cache(self._backend, cfg.topo_cache_slots,
+                                      device=self.device)
+        # spec_rank="auto": probe the disk tier's per-row delta-fetch
+        # latency once and pick the frontier predictor from it; without
+        # speculation the predictor is unused
+        if cfg.spec_rank == "auto":
+            if cfg.speculate:
+                self._spec_probe_us = probe_fetch_latency(self._backend,
+                                                          seed=cfg.seed)
+                self._spec_rank = ("dist" if self._spec_probe_us
+                                   >= cfg.spec_auto_threshold_us
+                                   else "flam")
+            else:
+                self._spec_rank = "flam"
+        # cold-start warm-up (paper §4.4): preload top-E_in rows
+        warm_n = min(cfg.cache_slots, n)
+        score = np.where(self._backend.alive[:n],
+                         self._backend.e_in[:n], -1)
+        top = np.argsort(-score, kind="stable")[:warm_n]
+        vecs, _ = self._backend.store.peek(top)
+        self._placement.warm(top, vecs)
+        # graph is a 1-row stub: the capacity tier lives behind the store
+        self._state = IndexState(
+            graph=init_graph_state(1, dim, cfg.degree, device=self.device),
+            cache=self._placement.to_cache_state(self.device),
+            stats=init_stats(self.device), tiered=self._backend)
+        if cfg.prefetch:
+            self._backend.store.start_prefetcher()
 
     # ------------------------------------------------------------------
     def _next_key(self) -> torch.Generator:
@@ -503,6 +603,9 @@ class SVFusionEngine:
         """One executor invocation (the coalescer's dispatch target).
         Batches pad to a power of two, as in the reference; pad lanes are
         masked out of the access logs."""
+        if self._backend is not None:
+            return self._search_tiered(queries, update_cache,
+                                       degrade=degrade, filter=filter)
         if filter is not None:
             raise ValueError("filtered search requires the three-tier "
                              "mode with cfg.attributes set")
@@ -537,6 +640,60 @@ class SVFusionEngine:
         self.latencies["search"].append(time.perf_counter() - t0)
         return ids, res.dists.cpu().numpy()
 
+    def _search_tiered(self, queries, update_cache=True, degrade=0,
+                       filter=None):
+        """Three-tier search: speculative pipeline + cascading lookup +
+        post-batch host placement. Batches pad to a power of two and the
+        search seed comes from the engine's numpy stream, as in the
+        reference, so the same seed draws the same entry points."""
+        t0 = time.perf_counter()
+        with self._cache_lock:
+            seed = int(self._rng.integers(0, 2 ** 31 - 1))
+        backend = self._backend
+        sp, rerank_depth = self._degraded_knobs(degrade)
+        queries = np.asarray(queries, np.float32)
+        B = queries.shape[0]
+        Bp = 1 << max(0, (B - 1)).bit_length()
+        if Bp != B:
+            queries = np.concatenate(
+                [queries, np.zeros((Bp - B, queries.shape[1]), np.float32)])
+        f_lam = self._placement.scores(backend.e_in)   # one O(N) pass/batch
+        res = search_tiered(
+            backend, self._placement, queries, seed, sp, f_lam=f_lam,
+            prefetch_budget=(self.cfg.prefetch_budget if self.cfg.prefetch
+                             else 0),
+            speculate=self.cfg.speculate, spec_width=self.cfg.spec_width,
+            spec_rank=self._spec_rank,
+            pq=(backend.pq if self.cfg.pq_enabled else None),
+            rerank_depth=rerank_depth,
+            topo=(backend.topo if self.cfg.pq_enabled else None),
+            fused_rounds=self.cfg.fused_rounds, filter=filter,
+            device=self.device)
+        if Bp != B:   # drop pad lanes from results AND placement logs
+            res = res._replace(ids=res.ids[:B], dists=res.dists[:B],
+                               acc_ids=res.acc_ids[:B],
+                               acc_hit=res.acc_hit[:B])
+        with self._cache_lock:    # concurrent search streams share these
+            self._search_rounds += res.iters
+            self._search_dispatches += res.dispatches
+            self._search_batches += 1
+            self._spec_hits += res.spec_hits
+            self._spec_misses += res.spec_misses
+            self._topo_hits += res.topo_hits
+            self._topo_misses += res.topo_misses
+        if update_cache:
+            with self._cache_lock:
+                Cache.apply_wavp_host(
+                    self._placement, res.acc_ids, res.acc_hit,
+                    self.cfg.search, alive=backend.alive,
+                    e_in=backend.e_in,
+                    fetch_vectors=lambda i: backend.store.fetch(
+                        i, f_lam, count=False)[0],
+                    now=self._update_batches,
+                    cascade_promote=self.cfg.wavp_cascade_promote)
+        self.latencies["search"].append(time.perf_counter() - t0)
+        return res.ids, res.dists
+
     # ------------------------------------------------------------------
     def insert(self, vectors, chunk=512, attributes=None):
         raise NotImplementedError("the write path (insert) is not ported "
@@ -557,19 +714,33 @@ class SVFusionEngine:
     @property
     def state(self) -> IndexState:
         with self._state_lock:
-            return self._state
+            st = self._state
+        if self._backend is not None:
+            # tiered mode: the cache/stats view is materialized on demand
+            # from the host mirrors
+            with self._cache_lock:
+                st = st._replace(
+                    cache=self._placement.to_cache_state(self.device),
+                    stats=self._placement.to_stats(self.device))
+            with self._state_lock:
+                self._state = st
+        return st
 
     def stats(self) -> dict:
-        """Placement counters, miss rate, index size and coalescer/SLO
-        counters: the reference's device-mode keys without
+        """Placement counters, miss rate, index size, the tiered mode's
+        tier, executor, speculation, topology and byte counters, and
+        coalescer/SLO counters: the reference's keys without
         ``modeled_us_per_access``, whose cost model was taken for a TPU
         (ROADMAP queue A.6)."""
         st = self.state
         s = st.stats
         d = {k: int(v) for k, v in s._asdict().items()}
         d["miss_rate"] = Cache.miss_rate(s)
-        d["n"] = int(st.graph.n)
-        d["alive"] = int(st.graph.alive.sum())
+        if self._backend is not None:
+            d.update(self._tiered_stats())
+        else:
+            d["n"] = int(st.graph.n)
+            d["alive"] = int(st.graph.alive.sum())
         d["consolidations"] = self._consolidations
         if self._coalescer is not None:
             c = self._coalescer
@@ -582,7 +753,56 @@ class SVFusionEngine:
             d["slo"] = c.tier.stats()
         return d
 
+    def _tiered_stats(self) -> dict:
+        be = self._backend
+        d = {"n": int(be.n), "alive": int(be.alive[:be.n].sum())}
+        d.update(be.tier_counts())
+        nb = max(self._search_batches, 1)
+        d["search_rounds_per_batch"] = self._search_rounds / nb
+        d["search_dispatches_per_batch"] = self._search_dispatches / nb
+        d["dispatches_per_query"] = self._search_dispatches / nb
+        d["topo_hits"] = self._topo_hits
+        d["topo_misses"] = self._topo_misses
+        d["topo_hit_rate"] = (self._topo_hits
+                              / max(self._topo_hits + self._topo_misses, 1))
+        d["spec_hits"] = self._spec_hits
+        d["spec_misses"] = self._spec_misses
+        d["spec_hit_rate"] = (self._spec_hits
+                              / max(self._spec_hits + self._spec_misses, 1))
+        d["spec_rank_resolved"] = self._spec_rank
+        if self._spec_probe_us is not None:
+            d["spec_probe_us_per_row"] = self._spec_probe_us
+        # no WAL and no filters in the port yet (ROADMAP A.8, A.9): these
+        # keep the reference's keys at their idle values
+        d["degraded"] = False
+        d["wal_enabled"] = False
+        d["filtered_searches"] = 0
+        d["filter_fallbacks"] = 0
+        d["filter_last_selectivity"] = None
+        d["filter_last_path"] = None
+        d["filter_fallback_selectivity"] = \
+            self.cfg.filter_fallback_selectivity
+        bpt = be.bytes_per_tier()
+        bpt["device_exact_cache"] = self._placement.vector_bytes
+        d["bytes_per_tier"] = bpt
+        d["device_exact_equiv_bytes"] = max(int(be.n), 1) * be.dim * 4
+        if be.pq is not None:
+            d["device_vector_bytes"] = (bpt["device_codes"]
+                                        + bpt["device_exact_cache"])
+            d["device_footprint_ratio"] = (bpt["device_codes"]
+                                           / d["device_exact_equiv_bytes"])
+            d["pq_m"] = be.pq.m
+            d["pq_bits"] = be.pq.bits
+            sp = self.cfg.search
+            d["rerank_depth"] = effective_rerank_depth(self.cfg.rerank_depth,
+                                                       sp.k, sp.pool)
+        return d
+
     def close(self):
-        """Stop the coalescer's dispatcher (failing any queued request)."""
+        """Stop the coalescer's dispatcher (failing any queued request)
+        and, in three-tier mode, the prefetcher, then flush the disk
+        tier."""
         if self._coalescer is not None:
             self._coalescer.stop()
+        if self._backend is not None:
+            self._backend.close()

@@ -1,17 +1,27 @@
-"""Hop-batched frontier executor, device arm (twin of the device half of
-``repro.core.search``).
+"""Hop-batched frontier executor (twin of ``repro.core.search``), both
+arms.
 
 A beam of ``sp.beam`` frontier candidates is expanded per round; their
-neighborhoods are scored in bulk through ``kernels.ops.gather_l2`` (the
-capacity table, overlaid with the bandwidth-tier copy on cache hits),
-merged into each query's candidate pool and the next frontier selected.
-The reference fuses all rounds into one ``lax.while_loop``; here the
-rounds are a Python loop whose condition ("does any query still have a
-frontier?") is one device-to-host read per round, counted in
-``SearchResult.host_syncs``. The loop runs exactly the reference's
-rounds: an extra masked round would not be a no-op, because merging an
-all-INF batch re-orders equal-distance pool entries through the packed
-path.
+neighborhoods are scored in bulk, merged into each query's candidate pool
+and the next frontier selected. The reference fuses rounds into one
+``lax.while_loop``; here ``_run_fused_rounds`` is a Python loop whose
+condition ("does any query still have a frontier?") is one device-to-host
+read per round. It runs exactly the reference's rounds: an extra masked
+round would not be a no-op, because merging an all-INF batch re-orders
+equal-distance pool entries through the packed path.
+
+* **Device arm** (``frontier_search``/``search_batch``): distances from
+  ``kernels.ops.gather_l2`` over the capacity table, overlaid with the
+  bandwidth-tier copy on cache hits; the read count is
+  ``SearchResult.host_syncs``.
+* **Tiered arm** (``search_tiered``): the host owns traversal over the
+  disk-backed store and the device runs the dispatches. In the PQ lane
+  candidates are scored by ``kernels.ops.adc_gather`` (``pq_adc``) from
+  device-resident codes, and with a topology cache the rounds fuse into
+  one dispatch that reads adjacency through ``kernels.ops.gather_rows``
+  (``row_gather``). The reference overlaps its speculative host stage
+  with the in-flight dispatch; the port's fused loop reads back every
+  round, so here the stage runs after the dispatch. Results are the same.
 
 Every top-k and argsort goes through ``core.topk`` (lower index first on
 ties, as ``lax.top_k``), and every gather clips its ids first, as the
@@ -24,10 +34,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core.cache import payload_rows
+from repro_torch.core.quant import adc_lut
 from repro_torch.core.topk import argsort, smallest_k
 from repro_torch.core.types import (CacheState, GraphState, IndexState,
                                     SearchParams)
-from repro_torch.kernels.ops import gather_l2
+from repro_torch.kernels.ops import adc_gather, gather_l2, gather_rows
 
 INF = float("inf")
 
@@ -295,6 +307,674 @@ def effective_rerank_depth(rerank_depth: int, k: int, pool: int) -> int:
     exact re-rank pulls vectors for: ``<= 0`` is the whole-pool sentinel,
     anything else clamps to ``[k, pool]``."""
     return pool if rerank_depth <= 0 else max(k, min(rerank_depth, pool))
+
+
+# ---------------------------------------------------------------------------
+# Tiered arm: the host owns traversal and residency over the disk-backed
+# store; the device runs one dispatch per round (or, with a topology
+# cache, one fused dispatch over many rounds), and a speculative stage
+# prepares the next round's rows between dispatches
+# ---------------------------------------------------------------------------
+
+def _batch_sqdist(x, q):
+    """[B, C, D] gathered rows vs [B, D] queries -> [B, C] fp32 distances,
+    in the reference's expansion form ‖x‖² − 2x·q + ‖q‖²."""
+    torch.backends.cuda.matmul.allow_tf32 = False   # full-fp32 products
+    xq = torch.matmul(x, q[:, :, None])[..., 0]
+    x2 = torch.einsum("bcd,bcd->bc", x, x)
+    q2 = torch.einsum("bd,bd->b", q, q)[:, None]
+    return x2 - 2.0 * xq + q2
+
+
+def _tiered_entry_dispatch(entry_ids, entry_vecs, entry_valid, queries,
+                           beam, id_bound):
+    """Entry-pool distances + dedup + sort + first frontier selection. Pool
+    state stays on the device across rounds; only the [B, beam] frontier
+    crosses back to the host."""
+    d = torch.where(entry_valid, _batch_sqdist(entry_vecs, queries), INF)
+    pool_ids, pool_d, visited = init_pool(entry_ids, d, id_bound)
+    curr, visited = select_frontier(pool_ids, pool_d, visited, beam)
+    return pool_ids, pool_d, visited, curr
+
+
+def _tiered_round_dispatch(pool_ids, pool_d, visited, cand_ids, uniq_vecs,
+                           cand_inv, cand_valid, queries, beam, id_bound):
+    """One exact round: the host ships the round's unique vectors
+    ``uniq_vecs [U, D]`` and the lane->unique map ``cand_inv [B, C]``;
+    the candidate matrix is gathered, scored, merged and the next
+    frontier selected here."""
+    d = _batch_sqdist(uniq_vecs[cand_inv], queries)
+    d = torch.where(cand_valid, d, INF)
+    pool_ids, pool_d, visited = merge_round(pool_ids, pool_d, visited,
+                                            cand_ids, d, id_bound)
+    curr, visited = select_frontier(pool_ids, pool_d, visited, beam)
+    return pool_ids, pool_d, visited, curr
+
+
+def _pq_entry_dispatch(entry_ids, entry_valid, codes, centroids, queries,
+                       beam, id_bound):
+    """Entry-pool ADC scan (``pq_adc``) + dedup + sort + first frontier
+    selection; builds the per-query LUTs that every later round reuses."""
+    lut = adc_lut(centroids, queries)
+    d = torch.where(entry_valid, adc_gather(codes, lut, entry_ids), INF)
+    pool_ids, pool_d, visited = init_pool(entry_ids, d, id_bound)
+    curr, visited = select_frontier(pool_ids, pool_d, visited, beam)
+    return pool_ids, pool_d, visited, curr, lut
+
+
+def _pq_round_dispatch(pool_ids, pool_d, visited, cand_ids, cand_valid,
+                       codes, lut, beam, id_bound):
+    """One PQ round with host-shipped candidate ids: scored from the
+    resident codes (``pq_adc``), merged, next frontier selected."""
+    d = torch.where(cand_valid, adc_gather(codes, lut, cand_ids), INF)
+    pool_ids, pool_d, visited = merge_round(pool_ids, pool_d, visited,
+                                            cand_ids, d, id_bound)
+    curr, visited = select_frontier(pool_ids, pool_d, visited, beam)
+    return pool_ids, pool_d, visited, curr
+
+
+def _pq_fused_dispatch(pool_ids, pool_d, visited, curr, r, acc_ids,
+                       topo_rows, topo_h2s, codes, lut, alive, r_stop,
+                       beam, id_bound):
+    """Consecutive PQ rounds from round ``r`` up to ``r_stop`` over the
+    device-resident topology cache: row gather (``row_gather``) ->
+    ``pq_adc`` -> merge -> select, through ``_run_fused_rounds``. A
+    frontier id whose row is not cached stalls the loop before its round
+    is applied; the host shell installs the row and re-enters at the
+    returned ``r``. ``acc_ids`` [B, rounds, C] is written in place.
+    Returns (pool_ids, pool_d, visited, curr, r, acc_ids)."""
+    n_dir, n_alive = topo_h2s.shape[0], alive.shape[0]
+
+    def row_fn(c):
+        nb = gather_rows(topo_rows, topo_h2s, c)       # [B, beam, R]
+        slot = topo_h2s[_clip(c, n_dir)]
+        return nb, (slot >= 0) | (c < 0)               # idle lanes never stall
+
+    def dist_fn(nb):
+        valid = (nb >= 0) & alive[_clip(nb, n_alive)]
+        d = adc_gather(codes, lut, nb)
+        # code-lane rounds log no device hits: the result's hit flags come
+        # from exact-cache residency at the end
+        return torch.where(valid, d, INF), torch.zeros_like(valid), valid
+
+    B = pool_ids.shape[0]
+    state0 = (r, pool_ids, pool_d, visited, curr, acc_ids,
+              torch.zeros(acc_ids.shape, dtype=torch.bool,
+                          device=acc_ids.device),
+              torch.zeros((B,), dtype=torch.int32, device=acc_ids.device),
+              False)
+    (r1, ids1, d1, vis1, curr1, acc1, _, _, _), _ = _run_fused_rounds(
+        state0, r_stop, beam, id_bound, row_fn, dist_fn)
+    return ids1, d1, vis1, curr1, r1, acc1
+
+
+def _fused_topo_shell(store, topo, spec, alive, f_lam, pq, codes,
+                      codes_epoch, lut, pool_ids, pool_d, visited, curr_t,
+                      beam, rounds, id_bound, fused_rounds, stage_width=0):
+    """Host shell around ``_pq_fused_dispatch``: the round loop when a
+    topology cache is attached. Steady state is ONE fused dispatch over
+    every remaining round; the host re-enters on a topology-cache miss
+    (install the frontier's missing rows, re-enter at the same round) or
+    at the K-round budget (``fused_rounds``; 0 = uncapped). When the
+    missing rows cannot be installed (cache too small, or every slot
+    protected by the live frontier) one per-round ``_pq_round_dispatch``
+    runs with host-shipped ids. With speculation, the host stages store
+    rows of the hottest non-resident next-hop candidates after each fused
+    dispatch, so a later miss is a memo hit instead of disk IO.
+
+    Returns (pool_ids, pool_d, acc [B, rounds, C] np.int32, rounds
+    executed, dispatches issued, topo hits, topo misses)."""
+    dev = pool_ids.device
+    B = pool_ids.shape[0]
+    R = topo.degree
+    C = beam * R
+    K = fused_rounds if fused_rounds > 0 else rounds
+    acc_t = torch.full((B, rounds, C), -1, dtype=torch.int32, device=dev)
+    acc_np = None
+    fb_rounds: list = []
+    dispatches = hits = misses = 0
+    r = 0
+    curr = curr_t.cpu().numpy()
+    no_progress = 0
+    while r < rounds and (curr >= 0).any():
+        topo.validate(store)
+        ep = store.write_epoch
+        if ep != codes_epoch:       # concurrent insert: fold fresh codes
+            codes_epoch = ep
+            codes = pq.synced_codes()
+        ucur = np.unique(curr[curr >= 0])
+        cached_rows, resm = topo.lookup(ucur)
+        need = ucur[~resm]
+        hits += int(resm.sum())
+        topo.hits += int(resm.sum())
+        rows_need = None
+        installed = True
+        if need.size:
+            misses += int(need.size)
+            topo.misses += int(need.size)
+            if spec is not None:
+                spec.validate()
+                rows_need = spec.rows_for(need)
+            else:
+                rows_need = store.fetch_rows(need, f_lam)
+            # the live frontier is protected: an install never evicts the
+            # rows the dispatch it feeds is about to gather
+            installed = topo.install(need, rows_need, f_lam, protect=ucur)
+        if installed and no_progress < 3:
+            rows_t, h2s_t = topo.synced()
+            out = _pq_fused_dispatch(
+                pool_ids, pool_d, visited, curr_t, r, acc_t, rows_t, h2s_t,
+                codes, lut, torch.as_tensor(alive, device=dev),
+                min(r + K, rounds), beam, id_bound)
+            dispatches += 1
+            if spec is not None:
+                # topology prefetch one cache miss ahead: stage store rows
+                # of the hottest non-resident candidates of this frontier
+                if rows_need is not None:
+                    cached_rows[~resm] = rows_need
+                nxt = np.unique(cached_rows[cached_rows >= 0])
+                nxt = nxt[topo.h2s[nxt] < 0]
+                if nxt.size:
+                    w = max(stage_width, 1) * B
+                    if nxt.size > w:
+                        nxt = nxt[np.argpartition(-f_lam[nxt], w - 1)[:w]]
+                    spec.stage(nxt)
+            pool_ids, pool_d, visited, curr_t, new_r, acc_t = out
+            curr = curr_t.cpu().numpy()
+            # a dispatch that advanced no round means residency changed
+            # under us (concurrent install/evict): bounded retries, then
+            # the per-round fallback, so the shell always progresses
+            no_progress = no_progress + 1 if new_r == r else 0
+            r = new_r
+        else:
+            if rows_need is not None:
+                cached_rows[~resm] = rows_need
+            nb = np.full((B, beam, R), -1, np.int32)
+            okm = curr >= 0
+            nb[okm] = cached_rows[np.searchsorted(ucur, curr[okm])]
+            nb = nb.reshape(B, C)
+            valid = (nb >= 0) & alive[np.clip(nb, 0, None)]
+            pool_ids, pool_d, visited, curr_t = _pq_round_dispatch(
+                pool_ids, pool_d, visited, torch.as_tensor(nb, device=dev),
+                torch.as_tensor(valid, device=dev), codes, lut, beam,
+                id_bound)
+            dispatches += 1
+            if acc_np is None:
+                acc_np = np.full((B, rounds, C), -1, np.int32)
+            acc_np[:, r] = np.where(valid, nb, -1)
+            fb_rounds.append(r)
+            curr = curr_t.cpu().numpy()
+            r += 1
+            no_progress = 0
+    acc = acc_t.cpu().numpy().copy()
+    if fb_rounds:   # overlay host-logged fallback rounds onto the device log
+        acc[:, fb_rounds] = acc_np[:, fb_rounds]
+    return pool_ids, pool_d, acc, r, dispatches, hits, misses
+
+
+def _pq_rerank_dispatch(top_ids, uniq_vecs, cand_inv, valid, queries, k):
+    """Exact re-rank of the top ADC-ranked pool entries: their exact
+    vectors (shipped as unique rows + lane->unique map) re-scored with
+    ``_batch_sqdist`` and re-sorted, ties lower lane first."""
+    d = _batch_sqdist(uniq_vecs[cand_inv], queries)
+    d = torch.where(valid, d, INF)
+    ds, order = smallest_k(d, d.shape[1])
+    ids = torch.where(torch.isfinite(ds), _take(top_ids, order), -1)
+    return ids[:, :k], ds[:, :k]
+
+
+class TieredSearchResult(NamedTuple):
+    ids: np.ndarray       # [B, k]
+    dists: np.ndarray     # [B, k]
+    acc_ids: np.ndarray   # [B, rounds*beam*R] accessed vertex ids (-1 pad)
+    acc_hit: np.ndarray   # [B, rounds*beam*R] device-cache-hit flags
+    iters: int            # expansion rounds executed
+    dispatches: int       # device dispatches issued (per-round: 1 + iters
+    #                       (+ re-rank); fused: entry + fused re-entries +
+    #                       fallback rounds + re-rank)
+    spec_hits: int = 0    # frontier rows already staged at read-back
+    spec_misses: int = 0  # frontier rows delta-fetched after read-back
+    topo_hits: int = 0    # frontier ids resident in the topology cache
+    topo_misses: int = 0  # frontier ids delta-fetched + installed
+
+    @property
+    def spec_hit_rate(self) -> float:
+        t = self.spec_hits + self.spec_misses
+        return self.spec_hits / t if t else 0.0
+
+    @property
+    def topo_hit_rate(self) -> float:
+        t = self.topo_hits + self.topo_misses
+        return self.topo_hits / t if t else 0.0
+
+
+def _resolve_unique_vectors(ids, h2d, cache_vec, store, f_lam):
+    """Vectors for a batch of *unique* non-negative ids through the
+    cascade device cache (mirror) -> host window -> disk. Returns
+    (vectors [U, D] fp32, device_hit [U])."""
+    out = np.empty((len(ids), store.disk.dim), np.float32)
+    slot = h2d[ids]
+    hit = slot >= 0
+    if hit.any():
+        out[hit] = payload_rows(cache_vec, slot[hit])
+    miss = ~hit
+    if miss.any():
+        out[miss] = store.fetch(ids[miss], f_lam)[0]
+    return out, hit
+
+
+def _host_sqdist(x, q):
+    """Numpy twin of ``_batch_sqdist`` for host-side frontier prediction:
+    [B, C, D] vs [B, D] -> [B, C]."""
+    diff = x - q[:, None, :]
+    return np.einsum("bcd,bcd->bc", diff, diff)
+
+
+def predict_frontier(ids, valid, f_lam, width, d_host=None):
+    """Ranked next-frontier guess [B, width] (-1 = no guess): per query,
+    the top-``width`` valid candidates by host-side score — exact host
+    distances when given (the entry stage), else the WAVP F_λ probe."""
+    score = (-d_host if d_host is not None
+             else f_lam[np.clip(ids, 0, None)])
+    score = np.where(valid, score, -np.inf)
+    w = min(width, ids.shape[1])
+    part = np.argpartition(-score, w - 1, axis=1)[:, :w]
+    got = np.take_along_axis(ids, part, axis=1)
+    ok = np.isfinite(np.take_along_axis(score, part, axis=1))
+    return np.where(ok, got, -1)
+
+
+class _StageMap:
+    """Append-only id -> payload staging memo (speculative buffers):
+    dense ``loc`` directory, doubling buffer, and wholesale invalidation
+    (the write-epoch check flushes it rather than patching it)."""
+
+    __slots__ = ("loc", "buf", "hit", "n", "_installed")
+
+    def __init__(self, capacity: int, width: int, dtype, track_hit=False):
+        self.loc = np.full((capacity,), -1, np.int64)
+        self.buf = np.empty((0, width), dtype)
+        self.hit = np.empty((0,), bool) if track_hit else None
+        self.n = 0
+        self._installed: list = []
+
+    def add(self, ids, rows, hit=None):
+        m = len(ids)
+        if not m:
+            return
+        need = self.n + m
+        if need > len(self.buf):
+            cap = max(need, 2 * len(self.buf), 256)
+            buf = np.empty((cap, self.buf.shape[1]), self.buf.dtype)
+            buf[:self.n] = self.buf[:self.n]
+            self.buf = buf
+            if self.hit is not None:
+                h = np.empty((cap,), bool)
+                h[:self.n] = self.hit[:self.n]
+                self.hit = h
+        self.buf[self.n:need] = rows
+        if self.hit is not None:
+            self.hit[self.n:need] = hit
+        self.loc[ids] = np.arange(self.n, need)
+        self._installed.append(np.asarray(ids))
+        self.n = need
+
+    def clear(self):
+        for blk in self._installed:
+            self.loc[blk] = -1
+        self._installed.clear()
+        self.n = 0
+
+
+class _SpecPipeline:
+    """Speculative stage of the tiered arm (§4.4): after round N's
+    dispatch the host stages the predicted round-N+1 frontier (adjacency
+    rows of the predicted ids, vectors of their neighborhoods, an async
+    disk prefetch one hop further). At read-back, staged ids feed the next
+    dispatch; mispredictions cost a delta fetch. Both memos are validated
+    against the store's write epoch every round, so a staged payload is
+    always what the demand path would fetch and results do not depend on
+    the prediction."""
+
+    def __init__(self, backend, h2d, cache_vec, f_lam, *,
+                 prefetch_budget=0, probe=8, stage_vectors=True):
+        self.store = backend.store
+        self.h2d, self.cache_vec, self.f_lam = h2d, cache_vec, f_lam
+        self.prefetch_budget = prefetch_budget
+        self.probe = probe
+        self.stage_vectors = stage_vectors   # False: PQ code lane — rows
+        #                                      (+ disk prefetch) only
+        cap = backend.capacity
+        self.rows = _StageMap(cap, backend.degree, np.int32)
+        self.vecs = _StageMap(cap, backend.dim, np.float32, track_hit=True)
+        self.epoch = self.store.write_epoch
+        self.hits = 0
+        self.misses = 0
+
+    def validate(self):
+        ep = self.store.write_epoch
+        if ep != self.epoch:
+            self.rows.clear()
+            self.vecs.clear()
+            self.epoch = ep
+
+    def rows_for(self, uids, *, speculative=False):
+        """Adjacency rows aligned with ``uids`` (unique, >= 0): staged ids
+        come from the memo, the rest are delta-fetched and installed.
+        Demand reads (``speculative=False``) score the hit rate."""
+        loc = self.rows.loc[uids]
+        miss = loc < 0
+        if not speculative:
+            self.hits += int((~miss).sum())
+            self.misses += int(miss.sum())
+        if miss.any():
+            mids = uids[miss]
+            self.rows.add(mids, self.store.fetch_rows(mids, self.f_lam))
+            loc = self.rows.loc[uids]
+        return self.rows.buf[loc]
+
+    def vectors_for(self, uids):
+        """(vectors [U, D], device_hit [U]) aligned with unique ids."""
+        loc = self.vecs.loc[uids]
+        miss = loc < 0
+        if miss.any():
+            mids = uids[miss]
+            v, h = _resolve_unique_vectors(mids, self.h2d, self.cache_vec,
+                                           self.store, self.f_lam)
+            self.vecs.add(mids, v, h)
+            loc = self.vecs.loc[uids]
+        return self.vecs.buf[loc], self.vecs.hit[loc]
+
+    def stage(self, pred):
+        """Speculative stage of the predicted ids ``pred``."""
+        ids = np.unique(pred[pred >= 0])
+        if not ids.size:
+            return
+        self.validate()
+        rows = self.rows_for(ids, speculative=True)
+        nxt = np.unique(rows[rows >= 0])
+        if not nxt.size:
+            return
+        if self.stage_vectors:
+            self.vectors_for(nxt)
+        if self.prefetch_budget > 0:
+            self._prefetch_two_ahead(nxt)
+
+    def _prefetch_two_ahead(self, cand):
+        """Async disk prefetch one hop past the staged frontier: peek the
+        hottest staged candidates' adjacency and enqueue their cold
+        neighbors."""
+        if cand.size > self.probe:
+            cand = cand[np.argpartition(-self.f_lam[cand],
+                                        self.probe - 1)[:self.probe]]
+        hrows = self.store.peek_rows(cand)
+        nxt = np.unique(hrows[hrows >= 0])
+        nxt = nxt[self.store.loc[nxt] < 0]
+        if nxt.size:
+            b = self.prefetch_budget
+            if nxt.size > b:
+                nxt = nxt[np.argpartition(-self.f_lam[nxt], b - 1)[:b]]
+            self.store.prefetch(nxt, self.f_lam)
+
+
+def _predict_prefetch(store, nb, valid, f_lam, budget, probe=8):
+    """Predicted next-frontier prefetch for the non-speculative path: peek
+    the hottest candidates' adjacency and enqueue their non-resident
+    neighbors to the background prefetcher."""
+    cand = np.unique(nb[valid])
+    if not cand.size:
+        return
+    if cand.size > probe:
+        cand = cand[np.argpartition(-f_lam[cand], probe - 1)[:probe]]
+    hrows = store.peek_rows(cand)
+    nxt = np.unique(hrows[hrows >= 0])
+    nxt = nxt[store.loc[nxt] < 0]
+    if nxt.size:
+        if nxt.size > budget:
+            nxt = nxt[np.argpartition(-f_lam[nxt], budget - 1)[:budget]]
+        store.prefetch(nxt, f_lam)
+
+
+def _ship_unique_vectors(ids, valid, resolve):
+    """The executor's ship-unique protocol, shared by the exact round
+    dispatch and the PQ re-rank: dedup a [B, C] id matrix (invalid lanes
+    collapse onto placeholder id 0, whose distances the dispatch masks),
+    resolve vectors for the unique ids through ``resolve``. The reference
+    pads the unique rows to power-of-four buckets to bound XLA compiles;
+    the padded rows are never referenced, so the port ships none.
+    Returns (uvec [U, D], uhit [U], inv [B, C] int32)."""
+    B, C = ids.shape
+    uc, inv = np.unique(np.where(valid, ids, 0).reshape(-1),
+                        return_inverse=True)
+    uvec, uhit = resolve(uc)
+    return uvec, uhit, inv.reshape(B, C).astype(np.int32)
+
+
+def search_tiered(backend, cache_mirror, queries, seed, sp: SearchParams,
+                  *, f_lam=None, prefetch_budget: int = 0,
+                  entry_ids=None, speculate: bool = True,
+                  spec_width: int = 0, spec_rank: str = "flam",
+                  spec_predict=None, pq=None, rerank_depth: int = 0,
+                  topo=None, fused_rounds: int = 0, filter=None,
+                  device="cuda") -> TieredSearchResult:
+    """Hop-batched frontier search over a disk-backed graph (paper
+    Algorithm 1 in its GPU-CPU-disk form), the twin of
+    ``repro.core.search.search_tiered``. Per round: one bulk (delta) row
+    fetch, one unique-id vector cascade, one distance+merge dispatch on
+    ``device``; a speculative stage (``_SpecPipeline``) prepares the next
+    round's rows and vectors, so at read-back only mispredicted ids need
+    IO. Speculation is transparent: results equal ``speculate=False``.
+
+    backend: ``tiers.TieredBackend``; cache_mirror: ``cache.HostPlacement``.
+    ``entry_ids`` [B, pool] overrides the random entry pool, which is
+    otherwise drawn from ``np.random.default_rng(seed)`` as the reference
+    draws it. ``spec_width``: predicted frontier ids staged per query per
+    round (0 -> beam). ``spec_rank``: ``"flam"`` ranks round predictions
+    by the F_λ probe, ``"dist"`` by exact host distances over the staged
+    vectors. ``spec_predict``: prediction hook with the signature of
+    ``predict_frontier``.
+
+    ``pq``: a ``quant.PQCodes`` lane on ``device``. Rounds then score
+    candidates from the resident codes (``pq_adc``); only adjacency rows
+    cross tiers, and a final stage re-ranks the top ``rerank_depth`` pool
+    entries (<= 0: the whole pool; clamped to [k, pool]) with exact
+    vectors from the cascade. ``topo``: a ``cache.TopoCache`` on
+    ``device`` (PQ lane only): the round loop runs through the fused
+    dispatch (``_pq_fused_dispatch``, ``_fused_topo_shell``) with at most
+    ``fused_rounds`` rounds per dispatch (0 = uncapped); results equal
+    the per-round executor's. Filtered search is not ported yet
+    (ROADMAP queue A.9): ``filter`` raises.
+    """
+    if filter is not None:
+        raise NotImplementedError("filtered search is not ported yet: "
+                                  "ROADMAP queue A.9")
+    dev = torch.device(device)
+    store = backend.store
+    alive = backend.alive
+    # ONE snapshot read: h2d and vectors from the same publish
+    view = cache_mirror.view
+    h2d, cache_vec = view.h2d, view.vectors
+    if f_lam is None:
+        f_lam = cache_mirror.scores(backend.e_in)
+
+    queries = np.asarray(queries, np.float32)
+    B, D = queries.shape
+    L, R, k = sp.pool, backend.degree, sp.k
+    beam = max(1, min(sp.beam, L))
+    rounds = _n_rounds(sp)
+    C = beam * R
+    n = max(backend.n, 1)
+    id_bound = int(backend.capacity)
+    qt = torch.as_tensor(queries, device=dev)
+
+    if entry_ids is None:
+        rng = np.random.default_rng(seed)
+        entry_ids = rng.integers(0, n, (B, L))
+    entry_ids = np.asarray(entry_ids, np.int64)
+
+    use_pq = pq is not None
+    if use_pq:
+        # epoch read BEFORE the sync: a write racing the sync re-syncs
+        # next round rather than never
+        codes_epoch = store.write_epoch
+        codes = pq.synced_codes()
+        depth = effective_rerank_depth(rerank_depth, k, L)
+
+    spec = None
+    if speculate:
+        spec = _SpecPipeline(backend, h2d, cache_vec, f_lam,
+                             prefetch_budget=prefetch_budget,
+                             stage_vectors=not use_pq)
+        spec.validate()
+        width = spec_width if spec_width > 0 else beam
+        predict = spec_predict if spec_predict is not None else \
+            predict_frontier
+
+    entry_alive = alive[entry_ids]
+    entry_t = torch.as_tensor(entry_ids.astype(np.int32), device=dev)
+    if use_pq:
+        # entry pool scored from the resident codes: no vector fetch
+        pool_ids, pool_d, visited, curr_t, lut = _pq_entry_dispatch(
+            entry_t, torch.as_tensor(entry_alive, device=dev), codes,
+            pq.codebook.centroids, qt, beam, id_bound)
+        dispatches = 1
+        if spec is not None:
+            # no host vectors in the code lane: the entry prediction uses
+            # the F_λ probe (rows-only staging)
+            spec.stage(predict(entry_ids, entry_alive, f_lam, width))
+    else:
+        # entry pool: one unique-id cascade + one entry dispatch
+        ue, inv_e = np.unique(entry_ids.reshape(-1), return_inverse=True)
+        if spec is not None:
+            uev, _ = spec.vectors_for(ue)
+        else:
+            uev, _ = _resolve_unique_vectors(ue, h2d, cache_vec, store,
+                                             f_lam)
+        ev = uev[inv_e].reshape(B, L, D)
+        pool_ids, pool_d, visited, curr_t = _tiered_entry_dispatch(
+            entry_t, torch.as_tensor(ev, device=dev),
+            torch.as_tensor(entry_alive, device=dev), qt, beam, id_bound)
+        dispatches = 1
+        if spec is not None:
+            # the entry vectors are host-resident, so the first frontier
+            # is predicted from exact host distances
+            pred = predict(entry_ids, entry_alive, f_lam, width,
+                           d_host=_host_sqdist(ev, queries))
+            spec.stage(pred)
+    curr = curr_t.cpu().numpy()               # [B, beam], -1 = idle lane
+
+    acc_ids = np.full((B, rounds, C), -1, np.int32)
+    acc_hit = np.zeros((B, rounds, C), bool)
+    it = 0
+    topo_hits = topo_misses = 0
+    if use_pq and topo is not None:
+        (pool_ids, pool_d, acc_ids, it, extra, topo_hits,
+         topo_misses) = _fused_topo_shell(
+            store, topo, spec, alive, f_lam, pq, codes, codes_epoch,
+            lut, pool_ids, pool_d, visited, curr_t, beam, rounds,
+            id_bound, fused_rounds,
+            stage_width=(width if spec is not None else 0))
+        dispatches += extra
+    else:
+        for _ in range(rounds):
+            ok = curr >= 0
+            if not ok.any():
+                break
+            # ONE bulk row fetch for the whole beam; staged rows from the
+            # speculative stage make it a delta fetch
+            ucur = np.unique(curr[ok])
+            if spec is not None:
+                spec.validate()
+                urows = spec.rows_for(ucur)
+            else:
+                urows = store.fetch_rows(ucur, f_lam)
+            nb = np.full((B, beam, R), -1, np.int32)
+            nb[ok] = urows[np.searchsorted(ucur, curr[ok])]
+            nb = nb.reshape(B, C)
+
+            valid = (nb >= 0) & alive[np.clip(nb, 0, None)]
+            nb_t = torch.as_tensor(nb, device=dev)
+            valid_t = torch.as_tensor(valid, device=dev)
+            if use_pq:
+                ep = store.write_epoch
+                if ep != codes_epoch:   # concurrent insert: fold fresh codes
+                    codes_epoch = ep
+                    codes = pq.synced_codes()
+                # only the id matrix crosses to the device
+                pool_ids, pool_d, visited, curr_t = _pq_round_dispatch(
+                    pool_ids, pool_d, visited, nb_t, valid_t, codes, lut,
+                    beam, id_bound)
+                dispatches += 1
+                acc_ids[:, it] = np.where(valid, nb, -1)
+                if spec is not None:
+                    if it + 1 < rounds:
+                        spec.stage(predict(nb, valid, f_lam, width))
+                elif prefetch_budget > 0:
+                    _predict_prefetch(store, nb, valid, f_lam,
+                                      prefetch_budget)
+                curr = curr_t.cpu().numpy()        # the round's sync point
+                it += 1
+                continue
+            uvec, uhit, inv = _ship_unique_vectors(
+                nb, valid,
+                spec.vectors_for if spec is not None else
+                (lambda u: _resolve_unique_vectors(u, h2d, cache_vec, store,
+                                                   f_lam)))
+            pool_ids, pool_d, visited, curr_t = _tiered_round_dispatch(
+                pool_ids, pool_d, visited, nb_t,
+                torch.as_tensor(uvec, device=dev),
+                torch.as_tensor(inv, device=dev), valid_t, qt, beam,
+                id_bound)
+            dispatches += 1
+            acc_ids[:, it] = np.where(valid, nb, -1)
+            acc_hit[:, it] = uhit[inv] & valid
+            if spec is not None:
+                if it + 1 < rounds:   # the last round has no next to stage
+                    d_host = None
+                    if spec_rank == "dist":
+                        # re-rank by exact host distances over the unique
+                        # vectors already on the host
+                        d_host = _host_sqdist(uvec[inv], queries)
+                    spec.stage(predict(nb, valid, f_lam, width,
+                                       d_host=d_host))
+            elif prefetch_budget > 0:
+                _predict_prefetch(store, nb, valid, f_lam, prefetch_budget)
+            curr = curr_t.cpu().numpy()            # the round's sync point
+            it += 1
+
+    spec_hits = spec.hits if spec else 0
+    spec_misses = spec.misses if spec else 0
+    if use_pq:
+        # device-hit flags for the placement pass: in the code lane an
+        # access "hits" when its id sits in the exact-vector cache (the
+        # tier the re-rank reads)
+        flat = acc_ids.reshape(B, -1)
+        acc_hit_flat = (h2d[np.clip(flat, 0, None)] >= 0) & (flat >= 0)
+
+        # exact re-rank of the top ADC-ranked pool entries
+        top_ids = pool_ids[:, :depth].cpu().numpy()
+        valid_r = (top_ids >= 0) \
+            & np.isfinite(pool_d[:, :depth].cpu().numpy())
+        uvec, _, inv = _ship_unique_vectors(
+            top_ids, valid_r,
+            lambda u: _resolve_unique_vectors(u, h2d, cache_vec, store,
+                                              f_lam))
+        ids_k, d_k = _pq_rerank_dispatch(
+            torch.as_tensor(top_ids, device=dev),
+            torch.as_tensor(uvec, device=dev),
+            torch.as_tensor(inv, device=dev),
+            torch.as_tensor(valid_r, device=dev), qt, k)
+        dispatches += 1
+        return TieredSearchResult(
+            ids_k.cpu().numpy(), d_k.cpu().numpy(), flat, acc_hit_flat, it,
+            dispatches, spec_hits, spec_misses, topo_hits, topo_misses)
+
+    pool_ids, pool_d = pool_ids.cpu().numpy(), pool_d.cpu().numpy()
+    topk_ids = np.where(np.isfinite(pool_d[:, :k]), pool_ids[:, :k], -1)
+    return TieredSearchResult(topk_ids.astype(np.int32), pool_d[:, :k],
+                              acc_ids.reshape(B, -1),
+                              acc_hit.reshape(B, -1), it, dispatches,
+                              spec_hits, spec_misses)
 
 
 def brute_force_topk(graph: GraphState, queries, k):

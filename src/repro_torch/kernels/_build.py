@@ -22,7 +22,9 @@ KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = {"l2_gather": ("l2_gather/csrc/l2_gather.cu",)}
+SOURCES = {"l2_gather": ("l2_gather/csrc/l2_gather.cu",),
+           "pq_adc": ("pq_adc/csrc/pq_adc.cu",),
+           "row_gather": ("row_gather/csrc/row_gather.cu",)}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -110,12 +110,13 @@ def test_config_keeps_every_reference_field():
     assert port - ref == {"device"} and ref <= port
 
 
-def test_unported_parts_raise(data, engine):
+def test_unported_parts_raise(data, engine, tmp_path):
     vecs, _ = data
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TE.SVFusionEngine(vecs, cfg(disk_path="/nonexistent"))
+        TE.SVFusionEngine(vecs, cfg(disk_path=str(tmp_path),
+                                    wal_enabled=True))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TE.SVFusionEngine(vecs, cfg(pq_enabled=True))
+        TE.SVFusionEngine(vecs, cfg(attributes=object()))
     for call in (lambda: engine.insert(vecs[:2]),
                  lambda: engine.delete([1]),
                  engine.consolidate_async, engine.checkpoint):
