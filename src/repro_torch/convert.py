@@ -10,6 +10,8 @@ reference's ``codebook_to_array`` output and codes),
 ``tiered_backend_from_arrays`` (a disk-tier directory and the metadata
 directory), ``host_placement_from_arrays`` and
 ``topo_cache_from_arrays``, so that both packages search one index.
+``rev_log_from_arrays`` / ``rev_log_to_arrays`` carry a reverse-edge log
+(``update.RevLog``) for the MVCC merges.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from repro_torch.core.cache import HostPlacement, TopoCache
 from repro_torch.core.quant import PQCodes, codebook_from_array
 from repro_torch.core.tiers import DiskTier, TieredBackend, TieredStore
 from repro_torch.core.types import CacheState, GraphState, IndexState, Stats
+from repro_torch.core.update import RevLog
 
 
 def _tensors(cls, arrays, device):
@@ -93,3 +96,16 @@ def topo_cache_from_arrays(rows, slot_hid, h2s, *, slots: int, epoch=None,
     topo.epoch = epoch
     topo._cursor = int((topo.slot_hid >= 0).sum())
     return topo
+
+
+def rev_log_from_arrays(v, v_new, d, device="cuda") -> RevLog:
+    """A device-mode RevLog (int32 ids, fp32 distances) on ``device``."""
+    return RevLog(torch.tensor(np.asarray(v, np.int32), device=device),
+                  torch.tensor(np.asarray(v_new, np.int32), device=device),
+                  torch.tensor(np.asarray(d, np.float32), device=device))
+
+
+def rev_log_to_arrays(log) -> tuple:
+    """(v, v_new, d) numpy arrays of a RevLog of either form."""
+    return tuple(x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+                 for x in log)

@@ -5,8 +5,8 @@ The KNN graph comes from brute-force distance GEMMs in row chunks on the
 device (exact, full fp32), then a host pass adds reverse edges with the
 reference's numpy random stream, then the cache tier is warmed with the
 highest in-degree vectors. ``build_tiered_backend`` spills the graph to
-the disk tier. The partitioned build and ``rank_based_reorder`` are not
-ported yet.
+the disk tier. ``rank_based_reorder`` prunes an insert's candidates to
+the out-degree. The partitioned build is not ported yet.
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.tiers import DiskTier, TieredBackend, TieredStore
-from repro_torch.core.topk import largest_k, smallest_k
+from repro_torch.core.topk import argsort, largest_k, smallest_k
 from repro_torch.core.types import (GraphState, IndexState, init_cache_state,
                                     init_graph_state, init_stats)
 
@@ -50,6 +50,34 @@ def _exact_knn(vectors, k, chunk=2048):
     if k_eff < k:
         out = torch.cat([out, out.new_full((n, k - k_eff), -1)], dim=1)
     return out
+
+
+def rank_based_reorder(cand_ids, cand_dists, nbrs, degree):
+    """Paper §5.1: sort candidates by detourable-path count (ascending).
+
+    For candidate i, count occurrences of cand[i] in the neighbor lists of
+    earlier candidates j < i; fewer detours = more valuable direct edge.
+    cand_ids [B, C] sorted by distance; nbrs [N, R]. Returns [B, degree]
+    int32. The sort key is the reference's float32 ``detours * 1e6 +
+    rank``: from 17 detours on it rounds (ulp 2), and the stable argsort
+    then breaks the tie by position, as the reference's does."""
+    B, C = cand_ids.shape
+    cids = cand_ids.to(torch.int32)
+    cn = nbrs[cids.clamp(0, nbrs.shape[0] - 1)]                # [B, C, R]
+    # eq[b, j, i]: cids[i] is in the row of cids[j]
+    eq = (cn[:, :, :, None] == cids[:, None, None, :]).any(2)  # [B, C, C]
+    before = torch.ones((C, C), dtype=torch.bool,
+                        device=cids.device).triu(1)            # j < i at [j, i]
+    detours = (eq & before).sum(1)                             # [B, C]
+    detours = torch.where(cids < 0, C + 1, detours)
+    rank = argsort(argsort(cand_dists))
+    order = argsort(detours.float() * 1e6 + rank.float())
+    take = min(degree, C)
+    o = order[:, :take]
+    sel = torch.where(detours.gather(1, o) > C, -1, cids.gather(1, o))
+    if take < degree:   # fewer candidates than out-degree: pad
+        sel = torch.cat([sel, sel.new_full((B, degree - take), -1)], dim=1)
+    return sel
 
 
 def _add_reverse_edges(nbrs_np: np.ndarray, n: int, rng: np.random.Generator):

@@ -8,11 +8,17 @@ index, or in three-tier mode (``disk_path``) from a disk-backed store
 with a host window, optionally with the PQ code lane and the fused
 topology executor. The coalescer's dispatcher thread runs the executor
 and the WAVP placement pass, and publishes the new cache tier under a
-lock, so concurrent searches read the last published snapshot.
+lock, so concurrent searches read the last published snapshot. Both
+modes take streaming inserts and deletes on one serialized update
+stream, with deletion-triggered repair and MVCC consolidation in a
+background thread (paper §5); ``MultiStreamRunner`` drives search
+streams and one update stream. The write-ahead log, recovery and
+``checkpoint`` are not ported (ROADMAP queue A.8).
 """
 from __future__ import annotations
 
 import os
+import queue
 import threading
 import time
 from dataclasses import dataclass, field
@@ -22,8 +28,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import cache as Cache
-from repro_torch.core import quant, slo
-from repro_torch.core.build import build_index, build_tiered_backend
+from repro_torch.core import mvcc, quant, slo, update
+from repro_torch.core.build import (_exact_knn, build_index,
+                                    build_tiered_backend, compute_e_in)
 from repro_torch.core.search import (effective_rerank_depth, search_batch,
                                      search_tiered)
 from repro_torch.core.tiers import probe_fetch_latency
@@ -393,9 +400,18 @@ class SVFusionEngine:
       batch. It needs ``wal_enabled=False``: durability is not ported
       yet.
 
-    Filtered search, the write path and durability are not ported yet:
-    asking for them raises ``NotImplementedError`` naming the ROADMAP
-    item.
+    Inserts and deletes serialize on the update stream in both modes:
+    device mode through ``update.insert_batch`` / ``delete_batch`` with
+    localized repair every ``repair_every`` batches, three-tier mode
+    through ``update.insert_tiered`` / ``delete_tiered`` with a
+    write-through install of new rows into the topology cache. A
+    deleted fraction of ``consolidate_threshold`` starts a background
+    consolidation on an MVCC snapshot (``consolidate_async``), at most
+    ``max_versions`` in flight; the reverse edges inserted meanwhile are
+    logged and re-applied at the merge.
+
+    Filtered search and durability are not ported yet: asking for them
+    raises ``NotImplementedError`` naming the ROADMAP item.
     """
 
     def __init__(self, init_vectors, cfg: EngineConfig, init_attrs=None):
@@ -412,6 +428,7 @@ class SVFusionEngine:
         self._key = torch.Generator(device=self.device)
         self._key.manual_seed(cfg.seed)
         self._state_lock = threading.RLock()   # publish/subscribe
+        self._update_lock = threading.Lock()   # serializes the update stream
         self._cache_lock = threading.Lock()
         self._backend = None                   # TieredBackend in 3-tier mode
         self._placement = None                 # HostPlacement in 3-tier mode
@@ -432,7 +449,12 @@ class SVFusionEngine:
         self._stale_state = self._state
         self._ops_since_refresh = 0
         self._update_batches = 0
+        self._batches_since_repair = 0
         self._consolidations = 0
+        self._active_versions = 0
+        self._rev_logs: list = []
+        self._snapshot_n: Optional[int] = None
+        self._bg_threads: list = []
         self.host_syncs = 0            # device-mode executor reads
         self._search_rounds = 0        # tiered executor round accounting
         self._search_dispatches = 0    # device dispatches issued by search
@@ -696,16 +718,221 @@ class SVFusionEngine:
 
     # ------------------------------------------------------------------
     def insert(self, vectors, chunk=512, attributes=None):
-        raise NotImplementedError("the write path (insert) is not ported "
-                                  "yet: ROADMAP queue A.7")
+        """Insert vectors (chunked so each chunk links into the graph the
+        previous chunks built; a near-empty device-mode index is
+        bootstrapped with an exact KNN stitch among the first chunk).
+        Returns the new ids."""
+        if attributes is not None:
+            raise NotImplementedError("filter attributes are not ported "
+                                      "yet: ROADMAP queue A.9")
+        t0 = time.perf_counter()
+        vectors = np.asarray(vectors, np.float32)
+        out = []
+        with self._update_lock:
+            for s in range(0, len(vectors), chunk):
+                part_np = vectors[s:s + chunk]
+                if self._backend is not None:
+                    out.append(self._insert_tiered(part_np))
+                    continue
+                part = torch.as_tensor(part_np, device=self.device)
+                st = self._state
+                rev = None
+                if int(st.graph.alive.sum()) < 2 * self.cfg.degree:
+                    st2, ids = self._bootstrap_insert(st, part)
+                else:
+                    n = max(int(st.graph.n), 1)
+                    entries = torch.randint(
+                        0, n, (len(part_np), self.cfg.search.pool),
+                        generator=self._next_key(), dtype=torch.int32,
+                        device=self.device)
+                    st2, ids, rev = update.insert_batch(st, part, entries,
+                                                        self.cfg.search)
+                if rev is not None and self._snapshot_n is not None:
+                    self._rev_logs.append(rev)
+                self._publish(st2)
+                self._update_batches += 1
+                self._batches_since_repair += 1
+                out.append(ids.cpu().numpy())
+        self._maybe_maintain()
+        self.latencies["insert"].append(time.perf_counter() - t0)
+        return np.concatenate(out) if out else np.zeros((0,), np.int32)
+
+    def _insert_tiered(self, part_np):
+        """One three-tier insert chunk (caller holds the update lock)."""
+        with self._cache_lock:
+            seed = int(self._rng.integers(0, 2 ** 31 - 1))
+        ids, rev = update.insert_tiered(self._backend, self._placement,
+                                        part_np, self.cfg.search, seed,
+                                        device=self.device)
+        if self._snapshot_n is not None and len(rev.v):
+            # consolidation in flight: log the window's reverse edges for
+            # the MVCC merge
+            self._rev_logs.append(rev)
+        topo = self._backend.topo
+        if topo is not None and len(ids):
+            # write-through topology install: freshly linked rows become
+            # device-resident at once, so the next fused search does not
+            # stall on them (reverse-edge updates to other resident rows
+            # are covered by the write-epoch fence)
+            arr = np.asarray(ids, np.int64)
+            topo.install(arr, self._backend.store.peek_rows(arr),
+                         self._placement.scores(self._backend.e_in))
+        self._update_batches += 1
+        self._batches_since_repair += 1
+        return np.asarray(ids)
+
+    def _bootstrap_insert(self, st, part):
+        """Exact-KNN stitch for a (near-)empty index."""
+        g = st.graph
+        n0 = int(g.n)
+        bi = part.shape[0]
+        ids = n0 + torch.arange(bi, dtype=torch.int32, device=self.device)
+        vectors = g.vectors.clone()
+        vectors[ids.long()] = part.float()
+        alive = g.alive.clone()
+        alive[ids.long()] = True
+        live_ids = torch.nonzero(alive[:n0 + bi]).squeeze(1)
+        knn = _exact_knn(vectors[live_ids],
+                         min(g.degree, max(1, len(live_ids) - 1)))
+        rows = torch.where(knn >= 0, live_ids[knn.clamp(min=0)], -1)
+        pad = g.degree - rows.shape[1]
+        if pad > 0:
+            rows = torch.cat([rows, rows.new_full((rows.shape[0], pad), -1)],
+                             dim=1)
+        nbrs = g.nbrs.clone()
+        nbrs[live_ids] = rows.to(torch.int32)
+        g = g._replace(vectors=vectors, alive=alive, nbrs=nbrs,
+                       n=torch.tensor(n0 + bi, dtype=torch.int32,
+                                      device=self.device))
+        g = g._replace(e_in=compute_e_in(g.nbrs, g.capacity))
+        return st._replace(graph=g), ids
 
     def delete(self, ids):
-        raise NotImplementedError("the write path (delete) is not ported "
-                                  "yet: ROADMAP queue A.7")
+        """Logical deletion (paper §5.2.1). Out-of-range and already
+        deleted ids are ignored."""
+        t0 = time.perf_counter()
+        with self._update_lock:
+            if self._backend is not None:
+                update.delete_tiered(self._backend, ids)
+            else:
+                st2 = update.delete_batch(
+                    self._state, torch.as_tensor(np.asarray(ids, np.int32),
+                                                 device=self.device))
+                self._publish(st2)
+            self._update_batches += 1
+            self._batches_since_repair += 1
+        self._maybe_maintain()
+        self.latencies["delete"].append(time.perf_counter() - t0)
+
+    # ------------------------------------------------------------------
+    def _maybe_maintain(self):
+        """Deletion-triggered maintenance (paper §5.2). Repair fires once
+        per ``repair_every`` update batches (counted since the last scan);
+        the deleted fraction is read from a state snapshot taken under
+        the lock. Three-tier mode has no localized-repair stage: the
+        streaming consolidation covers it."""
+        with self._update_lock:
+            if self._batches_since_repair >= self.cfg.repair_every:
+                self._batches_since_repair = 0
+                if self._backend is None:
+                    with self._state_lock:
+                        st = self._state
+                    st, _ = update.repair_affected(
+                        st, max_repair=self.cfg.repair_budget,
+                        threshold=self.cfg.repair_threshold)
+                    # repair only touches the graph: publish that field
+                    # alone so cache/stats updates from searches that ran
+                    # during the scan are not rolled back
+                    with self._state_lock:
+                        self._state = self._state._replace(graph=st.graph)
+        if self._backend is not None:
+            frac = self._backend.deleted_fraction()
+        else:
+            with self._state_lock:
+                graph = self._state.graph
+            frac = float(update.deleted_fraction(graph))
+        if frac >= self.cfg.consolidate_threshold:
+            self.consolidate_async()
 
     def consolidate_async(self, wait=False):
-        raise NotImplementedError("MVCC consolidation is not ported yet: "
-                                  "ROADMAP queue A.7")
+        """Background global consolidation on an MVCC snapshot (device
+        mode) or streamed over the disk tier (three-tier mode). Returns
+        the worker thread, or None when a version is already in flight or
+        the bounded-version policy defers it."""
+        if self._backend is not None:
+            return self._consolidate_tiered_async(wait)
+        with self._state_lock:
+            if self._snapshot_n is not None:
+                return None  # a version is already in flight: defer
+            if self._active_versions >= self.cfg.max_versions:
+                return None  # bounded-version policy: defer
+            snapshot = self._state
+            snap_n = int(snapshot.graph.n)
+            self._snapshot_n = snap_n
+            self._rev_logs = []
+            self._active_versions += 1
+
+        def work():
+            consolidated = update.consolidate(snapshot)
+            with self._update_lock, self._state_lock:
+                log = mvcc.concat_rev_logs(self._rev_logs, self.device)
+                self._state = mvcc.merge_consolidated(
+                    consolidated, self._state, snap_n, log)
+                self._snapshot_n = None
+                self._rev_logs = []
+                self._active_versions -= 1
+                self._consolidations += 1
+
+        return self._start_background(work, wait)
+
+    def _consolidate_tiered_async(self, wait=False):
+        """MVCC-snapshotted tiered consolidation: freeze topology+alive
+        under the update lock (brief), rebuild rows off-lock while
+        inserts/deletes/searches continue on the active store, then
+        publish through ``mvcc.merge_consolidated_tiered`` with the
+        window's per-batch reverse-edge logs in one short critical
+        section."""
+        with self._update_lock:
+            with self._state_lock:
+                if self._snapshot_n is not None:
+                    return None  # a version is already in flight: defer
+                if self._active_versions >= self.cfg.max_versions:
+                    return None  # bounded-version policy: defer
+                self._active_versions += 1
+            snap = mvcc.snapshot_tiered(self._backend)
+            with self._state_lock:
+                self._snapshot_n = snap.n
+                self._rev_logs = []
+
+        def work():
+            try:
+                new_rows = update.consolidate_tiered(self._backend,
+                                                     snapshot=snap)
+                with self._update_lock, self._state_lock:
+                    # per-batch logs, replayed in order by the merge
+                    mvcc.merge_consolidated_tiered(
+                        self._backend, snap, new_rows, list(self._rev_logs))
+            finally:
+                with self._state_lock:
+                    self._snapshot_n = None
+                    self._rev_logs = []
+                    self._active_versions -= 1
+                    self._consolidations += 1
+
+        return self._start_background(work, wait)
+
+    def _start_background(self, work, wait):
+        th = threading.Thread(target=work, daemon=True)
+        th.start()
+        self._bg_threads.append(th)
+        if wait:
+            th.join()
+        return th
+
+    def wait_background(self):
+        for th in self._bg_threads:
+            th.join()
+        self._bg_threads = []
 
     def checkpoint(self):
         raise NotImplementedError("durability (checkpoint) is not ported "
@@ -799,10 +1026,97 @@ class SVFusionEngine:
         return d
 
     def close(self):
-        """Stop the coalescer's dispatcher (failing any queued request)
-        and, in three-tier mode, the prefetcher, then flush the disk
-        tier."""
+        """Wait for background consolidations, stop the coalescer's
+        dispatcher (failing any queued request) and, in three-tier mode,
+        the prefetcher, then flush the disk tier."""
+        self.wait_background()
         if self._coalescer is not None:
             self._coalescer.stop()
         if self._backend is not None:
             self._backend.close()
+
+
+class MultiStreamRunner:
+    """Search/update streams over the engine (the multi-stream analogue):
+    search requests flow through the engine's cross-query coalescing
+    scheduler, plus one dedicated update stream consuming an op queue.
+    ``n_search_streams`` bounds the requests concurrently in flight (each
+    stream submits one and waits on its future, which is what lets the
+    coalescer merge across streams). Merge depth and window belong to
+    the engine (``coalesce_max_batch`` / ``coalesce_window``): the
+    reference's unused ``max_batch`` / ``batch_timeout`` are left out."""
+
+    def __init__(self, engine: SVFusionEngine, n_search_streams=2):
+        self.engine = engine
+        self.n_search_streams = n_search_streams
+        self._q: queue.Queue = queue.Queue()
+        self._sq: queue.Queue = queue.Queue()
+        self._stop = threading.Event()
+        self._threads = []
+        self.results: list = []
+        self.errors: list = []
+        # requests rejected by the SLO tier (shed / deadline-missed) land
+        # here, not in ``errors``: the admission policy working as designed
+        self.shed: list = []
+
+    def start(self):
+        self._threads = [threading.Thread(target=self._update_worker,
+                                          daemon=True)]
+        for _ in range(self.n_search_streams):
+            self._threads.append(threading.Thread(target=self._search_worker,
+                                                  daemon=True))
+        for t in self._threads:
+            t.start()
+
+    def submit_search(self, queries, tag=None, deadline=None):
+        """``tag`` doubles as the request's tenant id in the engine's SLO
+        admission tier (None -> default tenant); ``deadline`` is seconds
+        from dispatch-by-the-worker after which the answer is worthless."""
+        self._sq.put((np.asarray(queries, np.float32), tag, deadline,
+                      time.perf_counter()))
+
+    def submit_insert(self, vectors):
+        self._q.put(("insert", np.asarray(vectors, np.float32)))
+
+    def submit_delete(self, ids):
+        self._q.put(("delete", np.asarray(ids, np.int64)))
+
+    def _search_worker(self):
+        while not self._stop.is_set():
+            try:
+                qarr, tag, deadline, t0 = self._sq.get(timeout=0.05)
+            except queue.Empty:
+                continue
+            try:
+                ids, _ = self.engine.search(qarr, tenant=tag,
+                                            deadline=deadline)
+                self.results.append((tag, ids, time.perf_counter() - t0))
+            except slo.SLOError as e:
+                self.shed.append((tag, e))
+            except Exception as e:
+                self.errors.append(e)
+
+    def _update_worker(self):
+        while not self._stop.is_set():
+            try:
+                op, payload = self._q.get(timeout=0.05)
+            except queue.Empty:
+                continue
+            try:
+                if op == "insert":
+                    self.engine.insert(payload)
+                else:
+                    self.engine.delete(payload)
+            except Exception as e:
+                self.errors.append(e)
+
+    def drain_and_stop(self, timeout=60.0):
+        t0 = time.perf_counter()
+        while (not self._sq.empty() or not self._q.empty()) \
+                and time.perf_counter() - t0 < timeout:
+            time.sleep(0.01)
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=5.0)
+        if self.errors:
+            raise self.errors[0]

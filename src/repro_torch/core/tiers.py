@@ -375,6 +375,10 @@ class TieredBackend:
     def degree(self) -> int:
         return self.store.disk.degree
 
+    def deleted_fraction(self) -> float:
+        n = max(self.n, 1)
+        return float((~self.alive[:self.n]).sum()) / n
+
     def tier_counts(self) -> dict:
         s = self.store
         out = {"host_hits": s.hits, "disk_reads": s.misses,

@@ -24,7 +24,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = {"l2_gather": ("l2_gather/csrc/l2_gather.cu",),
            "pq_adc": ("pq_adc/csrc/pq_adc.cu",),
-           "row_gather": ("row_gather/csrc/row_gather.cu",)}
+           "row_gather": ("row_gather/csrc/row_gather.cu",),
+           "topk_merge": ("topk_merge/csrc/topk_merge.cu",)}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

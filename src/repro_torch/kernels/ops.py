@@ -3,7 +3,8 @@ device (twin of ``repro.kernels.ops``).
 
 A CPU tensor takes the plain PyTorch version; a CUDA tensor launches the
 hand-written kernel, which raises on anything it does not take. There is
-no fallback from one to the other.
+no fallback from one to the other. ``pool_merge`` (``topk_merge``) has no
+caller in the engine, as in the reference.
 """
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ from repro_torch.kernels.pq_adc import kernel as pq_adc_kernel
 from repro_torch.kernels.pq_adc.ref import pq_adc_ref
 from repro_torch.kernels.row_gather import kernel as row_gather_kernel
 from repro_torch.kernels.row_gather.ref import row_gather_ref
+from repro_torch.kernels.topk_merge import kernel as topk_merge_kernel
+from repro_torch.kernels.topk_merge.ref import topk_merge_ref
 
 
 def _on_cpu(name, first, *rest):
@@ -48,3 +51,11 @@ def gather_rows(table, h2s, ids):
     if _on_cpu("gather_rows", table, h2s, ids):
         return row_gather_ref(table, h2s, ids)
     return row_gather_kernel.row_gather(table, h2s, ids)
+
+
+def pool_merge(pool_d, pool_i, pool_v, new_d, new_i):
+    """Merge candidate pool with new distances, keep best-L by (d, id):
+    (d [B,L] fp32, id [B,L] int32, visited [B,L] bool)."""
+    if _on_cpu("pool_merge", pool_d, pool_i, pool_v, new_d, new_i):
+        return topk_merge_ref(pool_d, pool_i, pool_v, new_d, new_i)
+    return topk_merge_kernel.topk_merge(pool_d, pool_i, pool_v, new_d, new_i)

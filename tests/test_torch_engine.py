@@ -1,6 +1,7 @@
 """The port's device-mode engine on the CPU: search through the coalescer
 and directly, recall, the entry draw, stats keys against the reference,
-and the parts that are not ported yet."""
+and the parts that are not ported yet (the write path is held in
+``test_torch_update.py``)."""
 import numpy as np
 import pytest
 import torch
@@ -117,9 +118,8 @@ def test_unported_parts_raise(data, engine, tmp_path):
                                     wal_enabled=True))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TE.SVFusionEngine(vecs, cfg(attributes=object()))
-    for call in (lambda: engine.insert(vecs[:2]),
-                 lambda: engine.delete([1]),
-                 engine.consolidate_async, engine.checkpoint):
+    for call in (engine.checkpoint,
+                 lambda: engine.insert(vecs[:2], attributes={"t": [0, 1]})):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
 

@@ -219,7 +219,7 @@ def test_new_kernel_modules_import_without_nvcc():
             "from repro_torch.kernels.row_gather import kernel as b; "
             "assert not _build._libs and a.launches == b.launches == 0; "
             "assert set(_build.SOURCES) == {'l2_gather', 'pq_adc', "
-            "'row_gather'}; assert 'jax' not in sys.modules")
+            "'row_gather', 'topk_merge'}; assert 'jax' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True,
                    env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
 
