@@ -124,18 +124,21 @@ def l2_gather_bound_ms(table, ids):
 
 
 def phase_kernel(gen, dev):
-    """l2_gather against its plain version at the main path's shapes: the
+    """l2_gather against its plain version at the main paths' shapes: the
     capacity table [2^20, 96], the cache table [131072, 96], ids [1024,
-    512] with -1 lanes, duplicates and the boundary ids; bf16 once."""
+    512] with -1 lanes, duplicates and the boundary ids; bf16 once; and
+    the device-mode insert's candidate search, ids [512, 512]."""
     import torch
     from repro_torch.kernels.l2_gather import kernel as K
     from repro_torch.kernels.l2_gather.ref import l2_gather_ref
-    B, C, D = 1024, 512, 96
-    q = torch.randn(B, D, generator=gen, device=dev)
+    C, D = 512, 96
     rows = {}
-    for label, n, dtype in (("capacity", 1 << 20, torch.float32),
-                            ("cache", 131_072, torch.float32),
-                            ("capacity_bf16", 1 << 20, torch.bfloat16)):
+    for label, n, dtype, B in (("capacity", 1 << 20, torch.float32, 1024),
+                               ("cache", 131_072, torch.float32, 1024),
+                               ("capacity_bf16", 1 << 20, torch.bfloat16,
+                                1024),
+                               ("insert", 1 << 20, torch.float32, 512)):
+        q = torch.randn(B, D, generator=gen, device=dev)
         table = torch.randn(n, D, generator=gen, device=dev).to(dtype)
         ids = torch.randint(0, n, (B, C), generator=gen, device=dev,
                             dtype=torch.int32)
@@ -163,7 +166,7 @@ def phase_kernel(gen, dev):
                            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                            bound_by=bound_by)
         emit("kernel", kernel="l2_gather", table=label, **rows[label])
-        del table, ids, out, ref
+        del table, ids, out, ref, q
     return rows
 
 
@@ -692,7 +695,7 @@ def device_profile(fn, phase, top=15, **extra):
          ported=[{"kernel": name, "calls": c, "device_ms": t,
                   "us_per_call": t / c * 1e3}
                  for name in ("l2_gather", "pq_adc", "row_gather")
-                 for k, c, t in rows if f"{name}_kernel" in k])
+                 for k, c, t in rows if f"::{name}_" in k])
 
 
 def phase_profile(eng, queries, phase="profile"):
@@ -1235,7 +1238,8 @@ def main():
     logs = _build.build()
     emit("build", seconds=time.perf_counter() - t0, kernels=sorted(logs),
          ptxas=[ln.strip() for log in logs.values()
-                for ln in log.splitlines() if "registers" in ln])
+                for ln in log.splitlines()
+                if "registers" in ln or "Compiling entry" in ln])
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(args.seed)

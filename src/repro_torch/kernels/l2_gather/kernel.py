@@ -9,6 +9,7 @@ first launch (``kernels/_build.py``), never at import.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -17,9 +18,57 @@ from repro_torch.kernels import _build
 launches = 0    # kernel launches since the last reset (read by chip_smoke)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_D = 48 * 1024 // 4           # query row in static-limit shared memory
-_MAX_K = 65535 * 64               # grid.y holds K / 64 chunks
+_MAX_D = 48 * 1024 // 4           # rows path: query in static shared memory
+_MAX_K = 65535 * 64               # rows path: grid.y holds K / 64 chunks
+_MAX_BLOCKS = 2 ** 31 - 1         # groups path: grid.x
+_WARPS = 8                        # warps per block (kWarps in the source)
+_MAX_PER_LANE = 4                 # 16-byte vectors per lane (kMaxPerLane)
+_CHUNK = 64                       # rows path: candidates per block (kChunk)
 _fns = None
+
+
+ROWS, ROWS_VEC, GROUPS = 0, 1, 2   # the source's path numbers
+
+
+class Geometry(NamedTuple):
+    """One launch. ``path`` GROUPS: a group of ``group`` lanes per
+    candidate, ``per_lane`` 16-byte vectors a lane, ``per_warp``
+    candidates scored at once by a warp. ROWS_VEC / ROWS: a warp per
+    candidate, the query in shared memory, 16-byte / element row loads
+    (``per_lane`` loads a lane)."""
+    path: int
+    group: int
+    per_lane: int
+    per_warp: int
+    block: int
+    grid: tuple
+
+
+def launch_geometry(B, K, D, elem_size, aligned=True):
+    """Launch geometry for ids [B, K] over a table of width D with
+    ``elem_size``-byte elements (4 fp32, 2 bf16); ``aligned``: table and
+    queries both start on 16 bytes. The groups path takes every D that is
+    a whole number of 16-byte vectors, at most 32 * _MAX_PER_LANE of them,
+    with the narrowest group (most candidates per warp) that needs at most
+    _MAX_PER_LANE vectors a lane; anything else takes the rows path."""
+    width = 16 // elem_size
+    vec = aligned and D % width == 0
+    n = D // width if vec else D         # loads per row
+    if vec and n <= 32 * _MAX_PER_LANE:
+        group = next(g for g in (1, 2, 4, 8, 16, 32)
+                     if _cdiv(n, g) <= _MAX_PER_LANE)
+        blocks = _cdiv(B * _cdiv(K, 32), _WARPS)
+        if blocks > _MAX_BLOCKS:
+            raise ValueError(f"l2_gather: {blocks} blocks for B={B} K={K} "
+                             "exceed the grid")
+        return Geometry(GROUPS, group, _cdiv(n, group), 32 // group,
+                        _WARPS * 32, (blocks, 1))
+    return Geometry(ROWS_VEC if vec else ROWS, 32, _cdiv(n, 32), 1,
+                    _WARPS * 32, (B, _cdiv(K, _CHUNK)))
+
+
+def _cdiv(a, b):
+    return -(-a // b)
 
 
 def _launcher():
@@ -30,7 +79,8 @@ def _launcher():
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         err = lib.l2_gather_error_string
         err.argtypes = [ctypes.c_int]
@@ -80,13 +130,15 @@ def l2_gather(table, ids, queries):
     if B == 0 or K == 0:
         return out
     fn, err = _launcher()
-    width = 16 // table.element_size()
-    vec = int(D % width == 0 and table.data_ptr() % 16 == 0)
+    geo = launch_geometry(B, K, D, table.element_size(),
+                          table.data_ptr() % 16 == 0
+                          and queries.data_ptr() % 16 == 0)
     dev = table.device.index if table.device.index is not None \
         else torch.cuda.current_device()
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = fn(table.data_ptr(), _DTYPES[table.dtype], ids.data_ptr(),
-              queries.data_ptr(), out.data_ptr(), B, K, N, D, vec, dev,
+              queries.data_ptr(), out.data_ptr(), B, K, N, D, geo.path,
+              geo.group.bit_length() - 1, geo.per_lane, geo.grid[0], dev,
               stream)
     if code != 0:
         raise RuntimeError(f"l2_gather launch failed: "

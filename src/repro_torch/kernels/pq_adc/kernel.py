@@ -10,6 +10,7 @@ import.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -19,7 +20,28 @@ launches = 0    # kernel launches since the last reset (read by chip_smoke)
 
 _MAX_SMEM = 232_448               # a block's shared memory on an H100
 _MAX_C = 65535 * 512              # grid.y holds C / 512 chunks
+_MAX_THREADS = 256                # threads per block (kMaxThreads)
+_MAX_PER_THREAD = 2               # candidates per thread
 _fns = None
+
+
+class Geometry(NamedTuple):
+    """One launch: blocks of ``block`` threads with ``per_thread``
+    candidates each; grid (queries, chunks of block * per_thread)."""
+    block: int
+    per_thread: int
+    grid: tuple
+
+
+def launch_geometry(B, C):
+    """Launch geometry for ids [B, C]: the block is sized to C (32 to
+    _MAX_THREADS threads, whole warps), with up to _MAX_PER_THREAD
+    candidates a thread, so that a round (C=512) is one block of 256 x 2
+    per query and the entry (C=64) one of 64 x 1. The LUT's size sets
+    only the shared memory, which the source computes."""
+    block = min(_MAX_THREADS, max(32, -(-C // 32) * 32))
+    per_thread = min(_MAX_PER_THREAD, -(-C // block))
+    return Geometry(block, per_thread, (B, -(-C // (block * per_thread))))
 
 
 def _launcher():
@@ -30,6 +52,7 @@ def _launcher():
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                        ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         err = lib.pq_adc_error_string
@@ -79,12 +102,15 @@ def pq_adc(codes, lut, ids):
     if B == 0 or C == 0:
         return out
     fn, err = _launcher()
+    geo = launch_geometry(B, C)
     vec16 = int(m == 16 and codes.data_ptr() % 16 == 0)
+    lut_async = int(m * K % 4 == 0 and lut.data_ptr() % 16 == 0)
     dev = codes.device.index if codes.device.index is not None \
         else torch.cuda.current_device()
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = fn(codes.data_ptr(), lut.data_ptr(), ids.data_ptr(),
-              out.data_ptr(), B, C, N, m, K, vec16, dev, stream)
+              out.data_ptr(), B, C, N, m, K, vec16, lut_async, geo.block,
+              geo.per_thread, dev, stream)
     if code != 0:
         raise RuntimeError(f"pq_adc launch failed: {err(code).decode()} "
                            f"(cudaError {code})")
