@@ -15,8 +15,10 @@ line is printed only when all run.
 2. build         nvcc builds every kernel (l2_gather, pq_adc, row_gather,
                  topk_merge) from ``src/``, all at once.
 3. kernels       each kernel against its plain PyTorch version on the
-                 card at the main paths' shapes, with times, the bound
-                 and (topk_merge) the nearest library call.
+                 card at the main paths' shapes and at shapes that reach
+                 every path of the kernel, with times, the bound, the
+                 time of a near-empty launch and (topk_merge) the nearest
+                 library call.
 4. parity        on an integer-valued index, the device-mode executor and
                  ``search_tiered`` (PQ lane, topology cache, speculation)
                  on the CPU (plain versions) and on the card (kernels)
@@ -222,46 +224,64 @@ def phase_kernel_pq(gen, dev, n=1 << 20, m=16, K=256, B=1024):
     return rows
 
 
-def phase_kernel_rows(gen, dev, n=1 << 20, R=32, B=1024, W=16):
+def phase_kernel_rows(gen, dev, n=1 << 20, B=1024, W=16):
     """row_gather against its plain version at the fused loop's shapes:
-    table [2^20, 32] i32, a directory over 2^20 ids with half of them
-    non-resident, frontier ids [1024, 16] with -1 lanes. Exact."""
+    table [2^20, 32] i32, a directory over 2^20 ids, frontier ids [1024,
+    16] with -1 lanes; the directory half resident ("half") and fully
+    resident ("resident", the main path's topology cache), a table view
+    that is not 16-byte aligned ("misaligned") and R = 30 ("r30"): the
+    last two take the kernel's general path. Exact. Returns the
+    "resident" row."""
     import torch
     from repro_torch.kernels.row_gather import kernel as K_
     from repro_torch.kernels.row_gather.ref import row_gather_ref
-    table = torch.randint(-1, n, (n, R), generator=gen, device=dev,
-                          dtype=torch.int32)
-    h2s = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
-    h2s[torch.rand(n, generator=gen, device=dev) < 0.5] = -1
-    ids = ids_with_holes(gen, dev, B, W, n)
-    out = K_.row_gather(table, h2s, ids)
-    ref = row_gather_ref(table, h2s, ids)
-    torch.cuda.synchronize()
-    if not torch.equal(out, ref):
-        raise AssertionError("row_gather differs from its plain version")
-    live = ids[ids >= 0]
-    slots = h2s[live]
-    resident = torch.unique(slots[slots >= 0]).numel()
-    nbytes = B * W * 4 + live.numel() * 4 + resident * R * 4 + B * W * R * 4
-    row = dict(shape=[n, R, B, W], max_abs_err=0.0, exact=True,
-               ms=cuda_ms(lambda: K_.row_gather(table, h2s, ids), 30),
-               plain_ms=cuda_ms(lambda: row_gather_ref(table, h2s, ids), 10),
-               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-               resident_share=(slots >= 0).float().mean().item())
-    emit("kernel", kernel="row_gather", **row)
-    return row
+    rows = {}
+    for label, R, share, offset in (("half", 32, 0.5, 0),
+                                    ("resident", 32, 1.0, 0),
+                                    ("misaligned", 32, 0.5, 1),
+                                    ("r30", 30, 0.5, 0)):
+        flat = torch.randint(-1, n, (n * R + offset,), generator=gen,
+                             device=dev, dtype=torch.int32)
+        table = flat[offset:].view(n, R)
+        h2s = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+        h2s[torch.rand(n, generator=gen, device=dev) >= share] = -1
+        ids = ids_with_holes(gen, dev, B, W, n)
+        out = K_.row_gather(table, h2s, ids)
+        ref = row_gather_ref(table, h2s, ids)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"row_gather {label} differs from its "
+                                 "plain version")
+        live = ids[ids >= 0]
+        slots = h2s[live]
+        resident = torch.unique(slots[slots >= 0]).numel()
+        nbytes = (B * W * 4 + live.numel() * 4 + resident * R * 4
+                  + B * W * R * 4)
+        geo = K_.launch_geometry(B * W, R, table.data_ptr() % 16 == 0)
+        rows[label] = dict(
+            shape=[n, R, B, W], max_abs_err=0.0, exact=True,
+            path=("lanes", "tiles")[geo.path],
+            ms=cuda_ms(lambda: K_.row_gather(table, h2s, ids), 30),
+            plain_ms=cuda_ms(lambda: row_gather_ref(table, h2s, ids), 10),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            resident_share=(slots >= 0).float().mean().item())
+        emit("kernel", kernel="row_gather", case=label, **rows[label])
+        del flat, table, h2s, out, ref
+    return rows["resident"]
 
 
-def phase_kernel_topk_merge(gen, dev, B=1024, L=64):
-    """topk_merge against its plain version at the executor's merge
-    shapes: a [1024, 64] pool merged with one round's 512 candidates (beam
-    16 x degree 32, P = 1024 lanes) and with 32. Distances drawn half from
-    {0, 0.25, 0.5, 1, 2, +inf} (full (d, id) ties with different visited
-    bits, +inf lanes with valid ids) and half uniform, ids from [-1, 64),
-    10% (+inf, -1) pads, half the pools sorted. Exact on the bits of d, on
-    id and on visited, against the plain version on the card and on the
-    CPU. No path of the engine calls it (as in the reference), so its
-    launches are this phase's."""
+def phase_kernel_topk_merge(gen, dev, B=1024):
+    """topk_merge against its plain version: the executor's merge shapes,
+    a [1024, 64] pool merged with one round's 512 candidates (beam 16 x
+    degree 32) and with 32, and the ragged edges (L, R) = (10, 7), (100,
+    1000) and (300, 200), the last past the warp path's L <= 256 (the
+    block path). Distances drawn half from {0, 0.25, 0.5, 1, 2, +inf}
+    (full (d, id) ties with different visited bits, +inf lanes with valid
+    ids) and half uniform, ids from [-1, 64), 10% (+inf, -1) pads, half
+    the pools sorted; then the two divergence inputs. Exact on the bits
+    of d, on id and on visited, against the plain version on the card and
+    on the CPU. No path of the engine calls it (as in the reference), so
+    its launches are this phase's. Returns the (64, 512) row."""
     import torch
     from repro_torch.kernels.topk_merge import kernel as K_
     from repro_torch.kernels.topk_merge.ref import topk_merge_ref
@@ -279,14 +299,7 @@ def phase_kernel_topk_merge(gen, dev, B=1024, L=64):
         pad = torch.rand(rows, width, generator=gen, device=dev) < 0.1
         return d.masked_fill(pad, math.inf), i.masked_fill(pad, -1)
 
-    rows = {}
-    for R in (512, 32):
-        pd, pi = lanes(B, L)
-        pd[:B // 2] = pd[:B // 2].sort(1).values          # sorted pools
-        pv = torch.rand(B, L, generator=gen, device=dev) < 0.5
-        nd, ni = lanes(B, R)
-        args = (pd, pi, pv, nd, ni)
-        out = K_.topk_merge(*args)
+    def check(out, args, what):
         for where, ref in (("card", topk_merge_ref(*args)),
                            ("cpu", topk_merge_ref(*(a.cpu() for a in args)))):
             torch.cuda.synchronize()
@@ -295,8 +308,17 @@ def phase_kernel_topk_merge(gen, dev, B=1024, L=64):
                     and torch.equal(out[1].cpu(), ref[1].cpu())
                     and torch.equal(out[2].cpu(), ref[2].cpu()))
             if not same:
-                raise AssertionError(f"topk_merge R={R} differs from its "
+                raise AssertionError(f"topk_merge {what} differs from its "
                                      f"plain version on the {where}")
+
+    rows = {}
+    for L, R in ((64, 512), (64, 32), (10, 7), (100, 1000), (300, 200)):
+        pd, pi = lanes(B, L)
+        pd[:B // 2] = pd[:B // 2].sort(1).values          # sorted pools
+        pv = torch.rand(B, L, generator=gen, device=dev) < 0.5
+        nd, ni = lanes(B, R)
+        args = (pd, pi, pv, nd, ni)
+        check(K_.topk_merge(*args), args, f"L={L} R={R}")
         ties = int(((nd[:, :, None] == pd[:, None, :])
                     & (ni[:, :, None] == pi[:, None, :])).sum())
         cat = torch.cat([pd, nd], 1)
@@ -305,20 +327,42 @@ def phase_kernel_topk_merge(gen, dev, B=1024, L=64):
         nbytes = B * (L * 9 + R * 8) + B * L * 9
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = B * P * lg * (lg + 1) / 4 / FP32_FLOPS * 1e3
-        rows[R] = dict(
+        rows[(L, R)] = dict(
             shape=[B, L, R], lanes=P, full_ties_pool_new=ties,
             inf_lanes=int(torch.isinf(cat).sum()), max_abs_err=0.0,
             exact=True,
+            path=("warp", "block")[K_.launch_geometry(B, L, R).path],
             ms=cuda_ms(lambda: K_.topk_merge(*args), 30),
             plain_ms=cuda_ms(lambda: topk_merge_ref(*args), 10),
             library_ms=cuda_ms(lambda: torch.sort(cat, dim=1, stable=True),
                                30),
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations")
-        emit("kernel", kernel="topk_merge", **rows[R],
+        emit("kernel", kernel="topk_merge", **rows[(L, R)],
              library="torch.sort(d, stable=True) of [B, L+R]: the nearest "
              "single call, not the same function on ties")
-    return rows[512], K_.launches
+    # the two inputs on which the Pallas kernel departs from its oracle
+    # (tests/test_torch_topk_merge.py), with the oracle's ids and visited
+    # flags: (a) a (+inf, -1) pad outranks a real +inf lane; (b) a full
+    # (d, id) tie leaves visited order-dependent
+    inf = math.inf
+    divergences = (
+        (([[0.5, inf, inf, inf]], [[3, 5, 6, 7]], [[True, True, True, False]],
+          [[0.7, inf]], [[9, 8]]), [3, 9, 5, 6], [True, False, True, True]),
+        (([[.5, .5, .5, .9]], [[3, 3, 4, 7]], [[True, False, True, True]],
+          [[.5, .1]], [[3, 8]]), [8, 3, 3, 3], [False, True, False, False]))
+    for k, (case, want_ids, want_v) in enumerate(divergences):
+        args = tuple(torch.tensor(x, device=dev, dtype=dt) for x, dt in zip(
+            case, (torch.float32, torch.int32, torch.bool, torch.float32,
+                   torch.int32)))
+        out = K_.topk_merge(*args)
+        check(out, args, f"divergence input {k}")
+        if out[1][0].tolist() != want_ids or out[2][0].tolist() != want_v:
+            raise AssertionError(f"topk_merge divergence input {k}: "
+                                 f"{out[1][0].tolist()} {out[2][0].tolist()}")
+        emit("kernel", kernel="topk_merge", divergence_input=k,
+             ids=want_ids, visited=want_v, exact=True)
+    return rows[(64, 512)], K_.launches
 
 
 def int_vectors(gen, n, d, dev):
@@ -1246,6 +1290,11 @@ def main():
     sp = SearchParams(k=10, pool=64, max_iters=64, beam=16)
     t_run = time.perf_counter()
     if "kernels" in only:
+        # one near-empty launch (a zero-cycle device sleep) timed as the
+        # kernels are: what a kernel with ~1 us of bytes can reach here
+        floor_ms = cuda_ms(lambda: torch.cuda._sleep(0), 30)
+        emit("launch_floor", ms=floor_ms,
+             method="cuda_ms of torch.cuda._sleep(0), 30 calls")
         l2 = phase_kernel(gen, dev)["capacity"]
         pq = phase_kernel_pq(gen, dev)["round"]
         rows = phase_kernel_rows(gen, dev)
@@ -1284,7 +1333,7 @@ def main():
             "max_abs_err": k["row"]["max_abs_err"], "ms": k["row"]["ms"],
             "plain_ms": k["row"]["plain_ms"],
             "bound_ms": k["row"]["bound_ms"],
-            "bound_by": k["row"]["bound_by"],
+            "bound_by": k["row"]["bound_by"], "launch_floor_ms": floor_ms,
             "library_ms": k["row"].get("library_ms"), "checked": True,
             **({"path": k["path"]} if "path" in k else {})}
             for k in kernels]}), flush=True)

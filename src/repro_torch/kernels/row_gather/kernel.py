@@ -4,12 +4,14 @@ Replaces the Pallas TPU kernel ``repro/kernels/row_gather/kernel.py``
 (``row_gather``, body ``_kernel``): adjacency rows of frontier ids through
 the device-resident topology cache, the whole row -1 where the id is
 idle or not resident. The source says what bounds it and how it is laid
-out. The library is built with nvcc on the first launch
-(``kernels/_build.py``), never at import.
+out; ``launch_geometry`` chooses between its two paths. The library is
+built with nvcc on the first launch (``kernels/_build.py``), never at
+import.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -17,8 +19,42 @@ from repro_torch.kernels import _build
 
 launches = 0    # kernel launches since the last reset (read by chip_smoke)
 
-_MAX_LANES = (2 ** 31 - 1) * 8    # grid.x holds B*W / 8 warps' blocks
+_LANE_WARPS = 8                   # lanes path: lanes a block (kLaneWarps)
+_TILE_WARPS = 2                   # tiles path: 32-lane tiles a block
+_MAX_TILE_R = 128                 # tiles path: 32 16-byte vectors a row
+_MAX_BLOCKS = 2 ** 31 - 1         # grid.x
+_MAX_LANES = _MAX_BLOCKS * _LANE_WARPS    # the lanes path's grid
 _fns = None
+
+LANES, TILES = 0, 1               # the source's path numbers
+
+
+class Geometry(NamedTuple):
+    """One launch. TILES: a warp per 32 consecutive lanes, a group of
+    ``group`` threads per row (16-byte vectors), ``per_step`` rows a step.
+    LANES: a warp per lane (``group`` 32, ``per_step`` 1)."""
+    path: int
+    group: int
+    per_step: int
+    block: int
+    grid: int
+
+
+def launch_geometry(lanes, R, aligned=True):
+    """Launch geometry for ``lanes`` = B*W frontier lanes and rows of R
+    ints; ``aligned``: table and output both start on 16 bytes. The tiles
+    path takes every R that is a multiple of 4 up to _MAX_TILE_R, with
+    the smallest power-of-two group that covers a row's R/4 vectors;
+    anything else takes the lanes path."""
+    if aligned and R % 4 == 0 and 0 < R <= _MAX_TILE_R:
+        group = 1 << max(0, (R // 4 - 1).bit_length())
+        return Geometry(TILES, group, 32 // group, _TILE_WARPS * 32,
+                        _cdiv(_cdiv(lanes, 32), _TILE_WARPS))
+    return Geometry(LANES, 32, 1, _LANE_WARPS * 32, _cdiv(lanes, _LANE_WARPS))
+
+
+def _cdiv(a, b):
+    return -(-a // b)
 
 
 def _launcher():
@@ -29,6 +65,7 @@ def _launcher():
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
                        ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
         err = lib.row_gather_error_string
@@ -72,11 +109,14 @@ def row_gather(table, h2s, ids):
     if B * W == 0 or R == 0:
         return out
     fn, err = _launcher()
+    geo = launch_geometry(B * W, R, table.data_ptr() % 16 == 0
+                          and out.data_ptr() % 16 == 0)
     dev = table.device.index if table.device.index is not None \
         else torch.cuda.current_device()
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = fn(table.data_ptr(), h2s.data_ptr(), ids.data_ptr(),
-              out.data_ptr(), B * W, S, N, R, dev, stream)
+              out.data_ptr(), B * W, S, N, R, geo.path,
+              geo.group.bit_length() - 1, geo.grid, dev, stream)
     if code != 0:
         raise RuntimeError(f"row_gather launch failed: {err(code).decode()} "
                            f"(cudaError {code})")

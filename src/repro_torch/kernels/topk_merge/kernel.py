@@ -4,12 +4,14 @@ Replaces the Pallas TPU kernel ``repro/kernels/topk_merge/kernel.py``
 (``topk_merge``, network ``_bitonic``, body ``_kernel``): the best L of a
 candidate pool merged with new candidates, in the plain version's order
 (``ref.py``: distance, then id, then lane). The source says what bounds
-it and how it is laid out. The library is built with nvcc on the first
-launch (``kernels/_build.py``), never at import.
+it and how it is laid out; ``launch_geometry`` chooses between its two
+paths. The library is built with nvcc on the first launch
+(``kernels/_build.py``), never at import.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -19,7 +21,40 @@ launches = 0    # kernel launches since the last reset (read by chip_smoke)
 
 MAX_LANES = 16384       # P = next_pow2(L + R): 12 bytes of shared memory
 #                         per lane, 16 lanes per thread at most
+MAX_WARP_L = 256        # warp path: the running list, at most 8 keys a lane
+_ROWS = 4               # warp path: rows (one warp each) a block
 _fns = None
+
+WARP, BLOCK = 0, 1      # the source's path numbers
+
+
+class Geometry(NamedTuple):
+    """One launch. WARP: a warp per row, ``per_lane`` items a thread of a
+    running list of ``lanes`` = max(32, next_pow2(L)), the row walked in
+    chunks of as many lanes. BLOCK: a block of ``block`` threads per row
+    sorting all ``lanes`` = next_pow2(L + R), ``per_lane`` lanes a
+    thread."""
+    path: int
+    lanes: int
+    per_lane: int
+    block: int
+    grid: int
+
+
+def _pow2(n):
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def launch_geometry(B, L, R):
+    """Launch geometry for a [B, L] pool and [B, R] new candidates. The
+    warp path takes every L up to MAX_WARP_L; a longer list takes the
+    block path (a bitonic sort of all L + R lanes in one block)."""
+    if L <= MAX_WARP_L:
+        M = max(32, _pow2(L))
+        return Geometry(WARP, M, M // 32, _ROWS * 32, -(-B // _ROWS))
+    P = _pow2(L + R)
+    E = max(1, P // 1024)
+    return Geometry(BLOCK, P, E, P // E, B)
 
 
 def _launcher():
@@ -27,8 +62,8 @@ def _launcher():
     if _fns is None:
         lib = _build.load("topk_merge")
         fn = lib.topk_merge_launch
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
-            + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
+            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         err = lib.topk_merge_error_string
         err.argtypes = [ctypes.c_int]
@@ -81,13 +116,14 @@ def topk_merge(pool_d, pool_i, pool_v, new_d, new_i):
     out_v = torch.empty((B, L), dtype=torch.bool, device=dev_)
     if B == 0 or L == 0:
         return out_d, out_i, out_v
-    P = 1 << max(0, (L + R - 1).bit_length())
+    geo = launch_geometry(B, L, R)
     fn, err = _launcher()
     dev = dev_.index if dev_.index is not None else torch.cuda.current_device()
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = fn(pool_d.data_ptr(), pool_i.data_ptr(), pool_v.data_ptr(),
               new_d.data_ptr(), new_i.data_ptr(), out_d.data_ptr(),
-              out_i.data_ptr(), out_v.data_ptr(), B, L, R, P, dev, stream)
+              out_i.data_ptr(), out_v.data_ptr(), B, L, R, geo.path,
+              geo.lanes, geo.per_lane, geo.grid, dev, stream)
     if code != 0:
         raise RuntimeError(f"topk_merge launch failed: {err(code).decode()} "
                            f"(cudaError {code})")

@@ -1,16 +1,23 @@
-"""Launch geometry of the port's l2_gather and pq_adc kernels.
+"""Launch geometry of the port's CUDA kernels.
 
 The CUDA kernels run only on the card, but how each wrapper cuts a call
 into blocks, groups and lanes is plain Python (``launch_geometry``) and
 is checked here: the choice at the main paths' shapes, the edges (a row
 that is not a whole number of 16-byte vectors, K = 1, B = 1, the entry's
-C = 64, the wrappers' limits), and, by replaying the kernels' index
-arithmetic, that every candidate and every row element is covered once.
+C = 64, R = 30, a misaligned view, the wrappers' limits), and, by
+replaying the kernels' index arithmetic, that every candidate and every
+row element is covered once. The topk_merge network itself is replayed
+in ``test_torch_topk_network.py``.
 """
+import numpy as np
 import pytest
+import torch
 
 from repro_torch.kernels.l2_gather import kernel as L2
 from repro_torch.kernels.pq_adc import kernel as PQ
+from repro_torch.kernels.row_gather import kernel as RG
+from repro_torch.kernels.row_gather.ref import row_gather_ref
+from repro_torch.kernels.topk_merge import kernel as TM
 
 FP32, BF16 = 4, 2
 
@@ -166,3 +173,158 @@ def test_pq_adc_limits():
     geo = PQ.launch_geometry(2, PQ._MAX_C)
     assert geo.grid == (2, 65535)
     assert PQ.launch_geometry(2, PQ._MAX_C + 1).grid[1] == 65536
+
+
+def _row_gather_replay(geo, table, h2s, ids):
+    """Replay row_gather's launch on numpy: the tiles path (a warp per 32
+    lanes, each thread resolving its own lane's slot, groups of
+    ``geo.group`` threads copying 16-byte vectors of the row whose slot
+    they take by shuffle) or the lanes path (a warp per lane). Returns
+    the output and how often each (lane, int) was stored."""
+    (S, R), N = table.shape, h2s.shape[0]
+    flat = ids.reshape(-1)
+    lanes = flat.size
+    out = np.full((lanes, R), 0x7eadbeef, np.int64)
+    stores = np.zeros((lanes, R), np.int64)
+
+    def slot_of(lane):
+        if lane >= lanes or flat[lane] < 0:
+            return -1
+        return int(h2s[min(int(flat[lane]), N - 1)])
+
+    if geo.path == RG.TILES:
+        nvec, G = R // 4, geo.group
+        for blk in range(geo.grid):
+            for warp in range(geo.block // 32):
+                base = (blk * RG._TILE_WARPS + warp) * 32
+                if base >= lanes:
+                    continue
+                slot = [slot_of(base + t) for t in range(32)]
+                for t in range(32):
+                    grp, sub = t // G, t % G
+                    for step in range(G):       # G steps of 32 / G rows
+                        r = step * geo.per_step + grp
+                        assert r < 32
+                        sl = slot[r]            # __shfl_sync from lane r
+                        if sub >= nvec or base + r >= lanes:
+                            continue
+                        v = [-1] * 4 if sl < 0 else \
+                            table[min(sl, S - 1), 4 * sub:4 * sub + 4]
+                        out[base + r, 4 * sub:4 * sub + 4] = v
+                        stores[base + r, 4 * sub:4 * sub + 4] += 1
+    else:
+        for blk in range(geo.grid):
+            for warp in range(geo.block // 32):
+                lane = blk * RG._LANE_WARPS + warp
+                if lane >= lanes:
+                    continue
+                sl = slot_of(lane)
+                for t in range(32):
+                    for j in range(t, R, 32):
+                        out[lane, j] = -1 if sl < 0 else \
+                            table[min(sl, S - 1), j]
+                        stores[lane, j] += 1
+    return out.reshape(*ids.shape, R), stores
+
+
+def test_row_gather_main_path_geometry():
+    """The fused round's [1024, 16] frontier over R = 32 rows: groups of 8
+    threads, one 16-byte vector each, 4 rows a step, 512 warps in 256
+    blocks: one wave spread over the card's 132 SMs."""
+    geo = RG.launch_geometry(1024 * 16, 32)
+    assert geo.path == RG.TILES
+    assert (geo.group, geo.per_step, geo.block, geo.grid) == (8, 4, 64, 256)
+    assert geo.grid * geo.block // 32 == 512
+    assert geo.group * 4 == 32          # a group covers a row, none idle
+
+
+@pytest.mark.parametrize("lanes,R,aligned,path,group,grid", [
+    (16384, 30, True, RG.LANES, 32, 2048),    # not a multiple of 4
+    (16384, 32, False, RG.LANES, 32, 2048),   # misaligned table or output
+    (16384, 1, True, RG.LANES, 32, 2048),
+    (1, 32, True, RG.TILES, 8, 1),            # one lane
+    (33, 32, True, RG.TILES, 8, 1),           # two tiles, one block
+    (65, 32, True, RG.TILES, 8, 2),
+    (100, 4, True, RG.TILES, 1, 2),           # a row is one vector
+    (100, 12, True, RG.TILES, 4, 2),          # 3 vectors: one idle thread
+    (100, 128, True, RG.TILES, 32, 2),        # the widest tiles row
+    (100, 132, True, RG.LANES, 32, 13),       # past 32 vectors
+])
+def test_row_gather_paths(lanes, R, aligned, path, group, grid):
+    geo = RG.launch_geometry(lanes, R, aligned)
+    assert (geo.path, geo.group, geo.grid) == (path, group, grid)
+    assert geo.per_step * geo.group == 32
+    if path == RG.TILES:
+        nvec = R // 4
+        assert geo.group >= nvec and (geo.group == 1
+                                      or geo.group // 2 < nvec)
+
+
+def test_row_gather_limits():
+    """The lanes path at the wrapper's most lanes fills grid.x; the tiles
+    path needs 8 times fewer blocks."""
+    geo = RG.launch_geometry(RG._MAX_LANES, 30)
+    assert geo.grid == RG._MAX_BLOCKS
+    geo = RG.launch_geometry(RG._MAX_LANES, 32)
+    assert geo.path == RG.TILES
+    assert geo.grid == -(-RG._MAX_BLOCKS // 8)
+
+
+@pytest.mark.parametrize("B,W,R,aligned,res", [
+    (4, 16, 32, True, 0.5), (3, 16, 32, True, 1.0), (2, 17, 32, True, 0.5),
+    (1, 1, 32, True, 1.0), (3, 5, 30, True, 0.5), (2, 40, 4, True, 0.5),
+    (2, 9, 12, True, 0.7), (2, 7, 128, True, 0.7), (3, 11, 32, False, 0.5),
+])
+def test_row_gather_replay_stores_each_element_once(B, W, R, aligned, res):
+    """Every (lane, element) is stored exactly once, and the replayed
+    kernel equals the plain version: -1 rows on idle lanes (id < 0) and
+    non-resident ids, ids clipped to the directory and slots to the
+    table."""
+    rng = np.random.default_rng(B * 100 + W + R)
+    S, N = 40, 60
+    table = rng.integers(-1, N, (S, R)).astype(np.int32)
+    h2s = rng.integers(0, S + 3, N).astype(np.int32)     # past S: clipped
+    h2s[rng.random(N) >= res] = -1
+    ids = rng.integers(-1, N + 4, (B, W)).astype(np.int32)   # past N too
+    ids[0, 0] = -1
+    geo = RG.launch_geometry(B * W, R, aligned)
+    assert geo.path == (RG.TILES if aligned and R % 4 == 0 else RG.LANES)
+    out, stores = _row_gather_replay(geo, table, h2s, ids)
+    assert (stores == 1).all()
+    want = row_gather_ref(torch.from_numpy(table), torch.from_numpy(h2s),
+                          torch.from_numpy(ids)).numpy()
+    np.testing.assert_array_equal(out, want)
+
+
+@pytest.mark.parametrize("B,L,R,lanes,per_lane,chunks,grid", [
+    (1024, 64, 512, 64, 2, 9, 256),      # a round's merge
+    (1024, 64, 32, 64, 2, 2, 256),
+    (1024, 10, 7, 32, 1, 1, 256),        # ragged: one chunk, padded
+    (1024, 100, 1000, 128, 4, 9, 256),
+    (1024, 256, 40, 256, 8, 2, 256),     # the warp path's longest list
+    (1, 1, 0, 32, 1, 1, 1),
+    (5, 33, 1, 64, 2, 1, 2),
+])
+def test_topk_merge_warp_path_geometry(B, L, R, lanes, per_lane, chunks,
+                                       grid):
+    geo = TM.launch_geometry(B, L, R)
+    assert geo.path == TM.WARP
+    assert (geo.lanes, geo.per_lane, geo.grid) == (lanes, per_lane, grid)
+    assert geo.block == TM._ROWS * 32
+    assert geo.lanes >= L and geo.lanes == 32 * geo.per_lane
+    assert -(-(L + R) // geo.lanes) == chunks
+
+
+@pytest.mark.parametrize("L,R,P,per_lane,block", [
+    (257, 0, 512, 1, 512), (300, 200, 512, 1, 512),
+    (1000, 1000, 2048, 2, 1024), (TM.MAX_LANES - 1, 1, TM.MAX_LANES, 16,
+                                  1024),
+])
+def test_topk_merge_block_path_geometry(L, R, P, per_lane, block):
+    """A list past MAX_WARP_L takes the first design: a block per row
+    sorting all next_pow2(L + R) lanes."""
+    geo = TM.launch_geometry(7, L, R)
+    assert geo.path == TM.BLOCK
+    assert (geo.lanes, geo.per_lane, geo.block, geo.grid) == (
+        P, per_lane, block, 7)
+    assert geo.block * geo.per_lane == geo.lanes
