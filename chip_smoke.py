@@ -8,8 +8,8 @@ Usage: python3 chip_smoke.py [--seed S] [--only PHASES]
 
 Phases, each printing JSON lines (any failure raises and exits non-zero;
 there is no CPU branch). ``--only`` runs a comma-separated subset of
-kernels, parity, write_parity, main, tiered, consolidation; the kernels
-line is printed only when all run.
+kernels, parity, write_parity, durability, main, tiered, consolidation;
+the kernels line is printed only when all run.
 
 1. device        card name and power limit (nvidia-smi), torch and CUDA.
 2. build         nvcc builds every kernel (l2_gather, pq_adc, row_gather,
@@ -18,11 +18,15 @@ line is printed only when all run.
                  card at the main paths' shapes and at shapes that reach
                  every path of the kernel, with times, the bound, the
                  time of a near-empty launch and (topk_merge) the nearest
-                 library call.
+                 library call; pq_adc also at the filtered scan's shape
+                 ([1,024 x Mp] ids, Mp = 32,768 and 131,072) with the
+                 call's peak device memory.
 4. parity        on an integer-valued index, the device-mode executor and
                  ``search_tiered`` (PQ lane, topology cache, speculation)
                  on the CPU (plain versions) and on the card (kernels)
-                 agree exactly.
+                 agree exactly; so does filtered ``search_tiered`` for
+                 the reference filter suite's four specs, on the graph
+                 and the brute-force paths, in the exact and PQ lanes.
 5. write_parity  both write paths on an integer-valued 20,000 x 96 index,
                  once on the CPU and once on the card: device mode
                  (insert, delete, repair, consolidate on a snapshot, merge
@@ -30,7 +34,15 @@ line is printed only when all run.
                  delete, snapshot, window inserts and delete, streaming
                  consolidation, merge, then a PQ-lane search) end
                  identical.
-6. main          device mode: a 262,144 x 96 engine (Deep1B's width,
+6. durability    the WAL-on engine (PQ lane, attributes) on a 20,000 x 96
+                 integer index: one stream of inserts with attributes,
+                 deletes, a checkpoint and a consolidation on the CPU
+                 and on the card, each into its own copy of epoch 0;
+                 manifests, snapshot arrays and WAL records equal. Then
+                 a child process per crash point, killed there, reopened
+                 on the card: its state and searches equal the card
+                 run's after the same durable records.
+7. main          device mode: a 262,144 x 96 engine (Deep1B's width,
                  synthetic data from the seed) answers eight 1,024-query
                  requests and one of 10,240 through ``engine.search``;
                  ``l2_gather`` launches are read around these requests
@@ -41,14 +53,19 @@ line is printed only when all run.
                  (recall, read-after-write, no deleted id returned), then
                  a background consolidation with one more step in its
                  window.
-7. tiered        three-tier mode: a 1M x 96 engine on a disk tier in a
+8. tiered        three-tier mode: a 1M x 96 engine on a disk tier in a
                  temporary directory, PQ lane (m=16, 8 bits), topology
                  cache at full residency, speculation and prefetch on,
+                 the WAL on and attributes (a 16-value tag, a score),
                  answers the same requests; ``pq_adc`` and ``row_gather``
                  launches are read around them alone. Then its stats, a
-                 profile of three batches, a wall-time split by stage, and
-                 4 write-stream steps of 2,048 rows.
-8. consolidation the three-tier background consolidation, with one more
+                 profile of three batches, a wall-time split by stage,
+                 filtered requests at ~50% (graph path) and ~2% (scan)
+                 selectivity with their launches read alone, 4 write-
+                 stream steps of 2,048 rows (WAL bytes and fsyncs), and
+                 a close, a reopen from the disk tier alone and the same
+                 searches, identical.
+9. consolidation the three-tier background consolidation, with one more
                  stream step in its window, on a 131,072-row index of the
                  same configuration (the host pass is a Python loop over
                  256-row chunks, ~0.2 s each: about 14 minutes at 1M).
@@ -74,8 +91,8 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 FP32_FLOPS = 67e12            # H100 SXM fp32 outside the tensor cores
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-PHASES = ("kernels", "parity", "write_parity", "main", "tiered",
-          "consolidation")
+PHASES = ("kernels", "parity", "write_parity", "durability", "main",
+          "tiered", "consolidation")
 
 
 def emit(phase, **kw):
@@ -185,10 +202,25 @@ def ids_with_holes(gen, dev, B, C, n):
     return ids
 
 
+def scan_ids(gen, dev, B, Mp, n, matched):
+    """The filtered scan's id matrix: ``matched`` sorted distinct ids
+    below ``n``, padded with -1 to ``Mp`` and repeated for each of the
+    ``B`` queries as one contiguous [B, Mp] int32 matrix."""
+    import torch
+    row = torch.full((Mp,), -1, dtype=torch.int32, device=dev)
+    pick = torch.randperm(n, generator=gen, device=dev)[:matched]
+    row[:matched] = pick.sort().values.to(torch.int32)
+    return row.expand(B, Mp).contiguous()
+
+
 def phase_kernel_pq(gen, dev, n=1 << 20, m=16, K=256, B=1024):
     """pq_adc against its plain version at the tiered path's shapes: codes
     [2^20, 16] u8, LUT [1024, 16, 256], ids [1024, 512] (a round) and
-    [1024, 64] (the entry pool). Tolerance rtol 1e-5, atol 1e-4."""
+    [1024, 64] (the entry pool); and at the filtered scan's shape, one
+    row of matched ids padded with -1 to a power-of-four bucket Mp and
+    repeated for every query: Mp = 32,768 (20,000 matches, ~2% of 1M)
+    and 131,072 (100,000 matches), with the peak device memory of the
+    call beside the inputs'. Tolerance rtol 1e-5, atol 1e-4."""
     import torch
     from repro_torch.kernels.pq_adc import kernel as K_
     from repro_torch.kernels.pq_adc.ref import pq_adc_ref
@@ -196,9 +228,19 @@ def phase_kernel_pq(gen, dev, n=1 << 20, m=16, K=256, B=1024):
                           dtype=torch.uint8)
     lut = torch.rand(B, m, K, generator=gen, device=dev) * 100
     rows = {}
-    for label, C in (("round", 512), ("entry", 64)):
-        ids = ids_with_holes(gen, dev, B, C, n)
+    for label, C, matched in (("round", 512, None), ("entry", 64, None),
+                              ("scan_32768", 32_768, 20_000),
+                              ("scan_131072", 131_072, 100_000)):
+        if matched is None:
+            ids = ids_with_holes(gen, dev, B, C, n)
+        else:
+            ids = scan_ids(gen, dev, B, C, n, matched)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         out = K_.pq_adc(codes, lut, ids)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
         ref = pq_adc_ref(codes, lut, ids)
         torch.cuda.synchronize()
         bad = ids < 0
@@ -219,8 +261,11 @@ def phase_kernel_pq(gen, dev, n=1 << 20, m=16, K=256, B=1024):
             shape=[n, m, K, B, C], max_abs_err=err.max().item(),
             rtol=1e-5, atol=1e-4, ms=ms, plain_ms=plain_ms,
             bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations")
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            valid_lanes=int((~bad).sum()), ids_bytes=ids.numel() * 4,
+            out_bytes=out.numel() * 4, call_peak_bytes=peak)
         emit("kernel", kernel="pq_adc", ids=label, **rows[label])
+        del ids, out, ref, bad, err
     return rows
 
 
@@ -471,6 +516,109 @@ def phase_tiered_parity(gen, dev, sp, n=20_000, d=96, b=256):
          identical=list(cpu_res._fields), **out)
 
 
+FILTER_CASES = (        # tests/test_filters.py: 100%, 50%, ~1%, none
+    ("all", dict(ranges={"score": (None, None)})),
+    ("half", dict(tags={"cat": {0, 1}})),
+    ("one_pct", dict(ranges={"score": (0.0, 0.011)})),
+    ("none", dict(ranges={"score": (2.0, 3.0)})),
+)
+
+
+def phase_filtered_parity(gen, dev, sp, n=20_000, d=96, b=128):
+    """Filtered ``search_tiered`` on the CPU (plain versions) and on the
+    card (kernels) over one integer-valued index with attributes cat =
+    i % 4 and score = i / n: every spec of the reference's filter suite,
+    on the graph path (threshold 0) and the brute-force path (threshold
+    1.1), in the exact lane and in the PQ lane (integer-rounded
+    codebook, full topology cache, speculation on). Every field of the
+    results must be equal; the card's PQ graph path must launch pq_adc
+    and row_gather, and its scan pq_adc wherever a match exists."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.core import cache as Cache
+    from repro_torch.core import quant
+    from repro_torch.core.build import build_tiered_backend
+    from repro_torch.core.filters import AttributeSchema, FilterSpec
+    from repro_torch.core.search import search_tiered
+    from repro_torch.core.tiers import AttributeStore
+    from repro_torch.kernels.pq_adc import kernel as PK
+    from repro_torch.kernels.row_gather import kernel as RK
+    vecs = int_vectors(gen, n, d, dev).cpu().numpy()
+    queries = int_vectors(gen, b, d, dev).cpu().numpy()
+    schema = AttributeSchema(tag_fields=("cat",), num_fields=("score",))
+    tags = (np.arange(n) % 4)[:, None].astype(np.int32)
+    nums = (np.arange(n) / n)[:, None].astype(np.float32)
+    out = []
+    with tempfile.TemporaryDirectory() as td:
+        be = build_tiered_backend(vecs, 32, td, device=dev)
+        cb = quant.train_codebook(vecs, 16, 8, iters=10, device=dev)
+        cents = quant.codebook_to_array(cb).round()
+        codes = quant.encode(quant.codebook_from_array(cents, dev), vecs)
+        try:
+            hp = Cache.HostPlacement(n, 2048, d, dtype=torch.bfloat16)
+            hot = np.argsort(-be.e_in[:n], kind="stable")[:2048]
+            hp.warm(hot, vecs[hot])
+            f_lam = hp.scores(be.e_in)
+            for lane in ("exact", "pq"):
+                for path, thresh in (("graph", 0.0), ("fallback", 1.1)):
+                    for name, spec in FILTER_CASES:
+                        res = {}
+                        for where in ("cpu", dev):
+                            be.attach_attrs(AttributeStore(
+                                schema, n, tags=tags, nums=nums,
+                                device=where))
+                            kw = {}
+                            if lane == "pq":
+                                kw = dict(
+                                    pq=convert.pq_codes_from_arrays(
+                                        cents, codes, n, where),
+                                    topo=Cache.warm_topo_cache(
+                                        be, 0, device=where),
+                                    rerank_depth=32)
+                            l0 = (PK.launches, RK.launches)
+                            t0 = time.perf_counter()
+                            res[str(where)] = search_tiered(
+                                be, hp, queries, 7, sp, f_lam=f_lam,
+                                speculate=True, filter=FilterSpec(**spec),
+                                filter_fallback_selectivity=thresh,
+                                device=where, **kw)
+                            secs = time.perf_counter() - t0
+                            launched = (PK.launches - l0[0],
+                                        RK.launches - l0[1])
+                        cpu_res, card_res = res["cpu"], res[str(dev)]
+                        for f in cpu_res._fields:
+                            if not np.array_equal(getattr(cpu_res, f),
+                                                  getattr(card_res, f)):
+                                raise AssertionError(
+                                    f"filtered {lane}/{path}/{name}: card "
+                                    f"and CPU differ in {f}")
+                        if card_res.filter_path != path:
+                            raise AssertionError(
+                                f"filtered {lane}/{path}/{name} took the "
+                                f"{card_res.filter_path} path")
+                        # the PQ graph path scores its entry pool with
+                        # pq_adc; rows are gathered once a frontier exists
+                        want = (0, 0) if lane == "exact" else \
+                            (int(name != "none"), 0) \
+                            if path == "fallback" else \
+                            (1, int(name != "none"))
+                        if any(w and not g for w, g in zip(want,
+                                                           launched)):
+                            raise AssertionError(
+                                f"filtered {lane}/{path}/{name}: launches "
+                                f"(pq_adc, row_gather) = {launched}")
+                        out.append(dict(
+                            lane=lane, path=path, spec=name,
+                            selectivity=card_res.filter_selectivity,
+                            found=int((card_res.ids >= 0).sum()),
+                            card_s=secs, pq_adc_launches=launched[0],
+                            row_gather_launches=launched[1]))
+        finally:
+            be.close()
+    emit("filtered_parity", n=n, d=d, queries=b,
+         identical=list(cpu_res._fields), cases=out)
+
+
 def _same_tensors(a, b, what):
     """Raise unless the NamedTuples of tensors ``a`` and ``b`` (any
     devices) are equal field by field."""
@@ -678,6 +826,333 @@ def phase_write_parity_tiered(gen, dev, sp, n=20_000, d=96, b=512):
                     "version", "e_in", "pq codes", "ids", "logs",
                     "consolidated rows",
                     *(f"search.{f}" for f in card["search"]._fields)])
+
+
+DURABLE_N, DURABLE_ROWS = 20_000, 512
+CRASH_COMBOS = (("post_wal_append", 1), ("mid_memmap_write", 4),
+                ("pre_manifest_rename", 3), ("mid_consolidation_merge", 6))
+
+
+def durable_config(path, dev, cap=DURABLE_N + 4 * DURABLE_ROWS):
+    """The durability phase's three-tier engine: Deep1B's width, the PQ
+    lane on a full topology cache, attributes (cat, score), the WAL at
+    its defaults, snapshots only where the stream asks, no background
+    work (coalescer, prefetcher, automatic consolidation) and the
+    deterministic frontier predictor."""
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.core.filters import AttributeSchema
+    from repro_torch.core.types import SearchParams
+    return EngineConfig(
+        degree=32, cache_slots=2048, capacity=cap,
+        search=SearchParams(k=10, pool=64, max_iters=64, beam=16), seed=0,
+        disk_path=str(path), disk_capacity=cap, host_window=cap // 4,
+        pq_enabled=True, pq_m=16, pq_bits=8, rerank_depth=32,
+        topo_cache_slots=0, coalesce=False, prefetch=False, speculate=True,
+        spec_rank="flam", consolidate_threshold=2.0,
+        snapshot_every_epochs=0, device=str(dev),
+        attributes=AttributeSchema(tag_fields=("cat",),
+                                   num_fields=("score",)))
+
+
+def durable_stream(seed, n=DURABLE_N, d=96, rows=DURABLE_ROWS):
+    """The durability phase's update stream, a function of ``seed`` alone
+    (the crash child rebuilds it): four inserts of ``rows`` integer
+    vectors with attributes, two deletes, a checkpoint and a
+    consolidation; every op but the checkpoint is one WAL record."""
+    rng = np.random.default_rng(seed + 17)
+    new = rng.integers(-8, 9, (4 * rows, d)).astype(np.float32)
+    attrs = {"cat": rng.integers(0, 4, 4 * rows),
+             "score": rng.random(4 * rows).astype(np.float32)}
+    ops = [("insert", 0), ("insert", 1),
+           ("delete", rng.choice(n, 300, replace=False)),
+           ("checkpoint", None), ("insert", 2),
+           ("delete", rng.choice(n + 2 * rows, 300, replace=False)),
+           ("consolidate", None), ("insert", 3)]
+    return new, attrs, ops
+
+
+def run_durable_stream(eng, stream, crash=None, after_record=None,
+                       rows=DURABLE_ROWS):
+    """Drive ``stream`` through the engine's entry points; ``crash`` =
+    (point, op) arms a kill at that crash point just before op ``op``."""
+    new, attrs, ops = stream
+    for i, (kind, arg) in enumerate(ops):
+        if crash is not None and i == crash[1]:
+            arm_crash(crash[0])
+        if kind == "insert":
+            sl = slice(arg * rows, (arg + 1) * rows)
+            eng.insert(new[sl], attributes={k: v[sl]
+                                            for k, v in attrs.items()})
+        elif kind == "delete":
+            eng.delete(arg)
+        elif kind == "checkpoint":
+            eng.checkpoint()
+        else:
+            if eng.consolidate_async(wait=True) is None:
+                raise AssertionError("the consolidation was deferred")
+        if kind != "checkpoint" and after_record is not None:
+            after_record(eng)
+
+
+def arm_crash(point):
+    """Kill this process (exit code 137, as kill -9) the first time it
+    passes the named crash point."""
+    import os
+
+    from repro_torch.core import wal
+
+    def hook(name):
+        if name == point:
+            os._exit(137)
+    wal.set_crash_hook(hook)
+
+
+def tiered_probe(eng, queries, specs, dev):
+    """``search_tiered`` of the engine's backend on fixed inputs: seed 5,
+    no speculation and an empty fp32 exact cache, so that the result is
+    a function of the durable state alone (what a reopened engine must
+    reproduce). One result per spec (None: unfiltered)."""
+    from repro_torch.core import cache as Cache
+    from repro_torch.core.search import search_tiered
+    be = eng._backend
+    hp = Cache.HostPlacement(be.capacity, 1, be.dim)
+    return [search_tiered(be, hp, queries, 5, eng.cfg.search, pq=be.pq,
+                          topo=be.topo, rerank_depth=eng.cfg.rerank_depth,
+                          speculate=False, filter=spec,
+                          filter_fallback_selectivity=(
+                              eng.cfg.filter_fallback_selectivity),
+                          device=dev) for spec in specs]
+
+
+def durable_digest(eng, queries, dev):
+    """The logical state recovery must rebuild: rows, vectors, alive,
+    e_in, version, n, PQ codes and attribute columns over [0, n), and
+    ``tiered_probe`` unfiltered, on the graph path and on the brute-force
+    path."""
+    from repro_torch.core.filters import FilterSpec
+    be = eng._backend
+    n = be.n
+    out = {}
+    specs = (None, FilterSpec(tags={"cat": {0, 1}}),
+             FilterSpec(ranges={"score": (0.0, .02)}))
+    for name, r in zip(("all", "graph", "scan"),
+                       tiered_probe(eng, queries, specs, dev)):
+        out[f"{name}_ids"], out[f"{name}_dists"] = r.ids, r.dists
+        out[f"{name}_path"] = np.asarray(r.filter_path)
+    ids = np.arange(n)
+    tags, nums = be.attrs.snapshot(n)
+    out.update(nbr=be.store.peek_rows(ids), vec=be.store.peek(ids)[0],
+               alive=be.alive[:n].copy(), e_in=be.e_in.copy(),
+               version=be.version.copy(), n=np.int64(n),
+               codes=be.pq.codes[:n].copy(), tags=tags, nums=nums)
+    return out
+
+
+def _same_arrays(a, b, what):
+    """Raise unless ``a`` and ``b`` (arrays, or lists of arrays) are equal
+    in shape, dtype and value."""
+    if isinstance(a, (list, tuple)):
+        if not isinstance(b, (list, tuple)) or len(a) != len(b):
+            raise AssertionError(f"{what}: lengths differ")
+        for x, y in zip(a, b):
+            _same_arrays(x, y, what)
+        return
+    a, b = np.asarray(a), np.asarray(b)
+    if a.dtype != b.dtype or not np.array_equal(a, b):
+        raise AssertionError(f"{what}: {a.dtype}{a.shape} and "
+                             f"{b.dtype}{b.shape} differ")
+
+
+def durable_files(path):
+    """(manifest without its snapshot CRC, snapshot arrays, WAL records)
+    of the epoch a directory's manifest names. The CRC is left out: the
+    npz's zip headers carry the time they were written."""
+    from repro_torch.core import wal
+    man = wal.load_manifest(str(path))
+    with np.load(Path(path) / man["snapshot"]) as z:
+        snap = {k: z[k] for k in z.files}
+    recs, valid = wal.read_records(str(Path(path) / man["wal"]))
+    return ({k: v for k, v in man.items() if k != "snapshot_crc"}, snap,
+            recs, valid)
+
+
+def _same_files(a, b, what):
+    man_a, snap_a, recs_a, _ = a
+    man_b, snap_b, recs_b, _ = b
+    if man_a != man_b:
+        raise AssertionError(f"{what}: manifests differ")
+    if set(snap_a) != set(snap_b):
+        raise AssertionError(f"{what}: snapshot arrays differ")
+    for k in snap_a:
+        _same_arrays(snap_a[k], snap_b[k], f"{what}, snapshot {k}")
+    if [r[:2] for r in recs_a] != [r[:2] for r in recs_b]:
+        raise AssertionError(f"{what}: WAL record types or seqs differ")
+    for (rt, seq, pa), (_, _, pb) in zip(recs_a, recs_b):
+        if set(pa) != set(pb):
+            raise AssertionError(f"{what}: record {seq} keys differ")
+        for k in pa:
+            _same_arrays(pa[k], pb[k], f"{what}, record {seq} {k}")
+
+
+def make_durable_base(path, vecs, dev, cap):
+    """Epoch 0 of the durability phase's index in ``path``: the graph
+    built on the card, an integer-rounded PQ codebook (every ADC sum is
+    exact), attribute columns cat = i % 4 and score = (i % 97) / 97,
+    published by ``wal.publish_snapshot``."""
+    from repro_torch import convert
+    from repro_torch.core import quant, wal
+    from repro_torch.core.build import build_tiered_backend
+    from repro_torch.core.filters import AttributeSchema
+    from repro_torch.core.tiers import AttributeStore
+    n = len(vecs)
+    be = build_tiered_backend(vecs, 32, str(path), disk_capacity=cap,
+                              host_window=cap // 4, device=dev)
+    cb = quant.train_codebook(vecs, 16, 8, iters=10, device=dev)
+    cents = quant.codebook_to_array(cb).round()
+    codes = quant.encode(quant.codebook_from_array(cents, dev), vecs)
+    be.attach_pq(convert.pq_codes_from_arrays(cents, codes, cap, "cpu"))
+    be.attach_attrs(AttributeStore(
+        AttributeSchema(tag_fields=("cat",), num_fields=("score",)), cap,
+        tags=(np.arange(n) % 4)[:, None],
+        nums=((np.arange(n) % 97) / 97)[:, None], device="cpu"))
+    man, log = wal.publish_snapshot(str(path), be, None)
+    log.close()
+    be.close()
+    return man
+
+
+def crash_child(args):
+    """The crash slice's child (``--crash-child DIR``): recover DIR on the
+    card, run the durability stream with a kill armed at
+    ``--crash-point`` before op ``--crash-op``. Exit code 137 is the
+    kill; 3 means the armed point was never reached."""
+    import torch
+    from repro_torch.core.engine import SVFusionEngine
+    eng = SVFusionEngine(None, durable_config(args.crash_child,
+                                              torch.device("cuda", 0)))
+    run_durable_stream(eng, durable_stream(args.seed),
+                       crash=(args.crash_point, args.crash_op))
+    sys.exit(3)
+
+
+def phase_durability(gen, dev, seed, n=DURABLE_N, d=96, q_rows=256):
+    """The WAL, snapshots and recovery on the write-parity index size
+    (integer data): epoch 0 published once, then the same stream of
+    inserts with attributes, deletes, a checkpoint and a consolidation
+    through ``SVFusionEngine`` on the CPU and on the card, each from its
+    own copy of epoch 0. Manifests (but the snapshot CRC), snapshot
+    arrays and WAL record payloads must be equal, before and after
+    ``close()``. Then the crash slice: a child process per crash point,
+    killed there by ``os._exit(137)``, reopened on the card; its digest
+    must equal the card run's digest after the same number of durable
+    records."""
+    import shutil
+
+    from repro_torch.core.engine import SVFusionEngine
+    from repro_torch.kernels.pq_adc import kernel as PK
+    from repro_torch.kernels.row_gather import kernel as RK
+    cap = n + 4 * DURABLE_ROWS
+    vecs = int_vectors(gen, n, d, dev).cpu().numpy()
+    queries = int_vectors(gen, q_rows, d, dev).cpu().numpy()
+    stream = durable_stream(seed, n, d)
+    record_ops = [k for k, _ in stream[2] if k != "checkpoint"]
+    out = {}
+    procs = []
+    with tempfile.TemporaryDirectory() as td:
+        base = Path(td) / "base"
+        t0 = time.perf_counter()
+        make_durable_base(base, vecs, dev, cap)
+        out["base_s"] = time.perf_counter() - t0
+        try:
+            # the crash children run while the parent runs the streams
+            for point, op in CRASH_COMBOS:
+                path = Path(td) / f"crash-{point}"
+                shutil.copytree(base, path)
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()),
+                     "--seed", str(seed), "--crash-child", str(path),
+                     "--crash-point", point, "--crash-op", str(op)],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True))
+            runs, digests = {}, []
+            for tag, where in (("cpu", "cpu"), ("card", dev)):
+                path = Path(td) / tag
+                shutil.copytree(base, path)
+                t0 = time.perf_counter()
+                eng = SVFusionEngine(None, durable_config(path, where, cap))
+                open_s = time.perf_counter() - t0
+                on_card = tag == "card"
+                if on_card:
+                    PK.launches = RK.launches = 0
+                    digests.append(durable_digest(eng, queries, dev))
+                t0 = time.perf_counter()
+                run_durable_stream(
+                    eng, stream, after_record=(lambda e: digests.append(
+                        durable_digest(e, queries, dev))) if on_card
+                    else None)
+                secs = time.perf_counter() - t0
+                if on_card:
+                    launched = (PK.launches, RK.launches)
+                log = eng._wal
+                runs[tag] = dict(
+                    files=durable_files(path), open_s=open_s, stream_s=secs,
+                    wal_bytes=log.bytes, wal_fsyncs=log.fsyncs,
+                    wal_records=log.appended, epoch=eng._durable_epoch)
+                t0 = time.perf_counter()
+                eng.close()
+                runs[tag]["close_s"] = time.perf_counter() - t0
+                runs[tag]["closed"] = durable_files(path)
+            cpu, card = runs["cpu"], runs["card"]
+            _same_files(cpu["files"], card["files"], "durable stream")
+            _same_files(cpu["closed"], card["closed"], "after close")
+            if len(card["files"][2]) != 4 or card["closed"][2] or \
+                    min(launched) == 0:
+                raise AssertionError(
+                    f"durable stream: {len(card['files'][2])} records in "
+                    f"the last segment, {len(card['closed'][2])} after "
+                    f"close, launches {launched}")
+            crashes = []
+            for (point, op), p in zip(CRASH_COMBOS, procs):
+                _, err = p.communicate(timeout=900)
+                if p.returncode != 137:
+                    raise AssertionError(f"crash child at {point}: exit "
+                                         f"{p.returncode}\n{err[-2000:]}")
+                path = Path(td) / f"crash-{point}"
+                t0 = time.perf_counter()
+                eng = SVFusionEngine(None, durable_config(path, dev, cap))
+                reopen_s = time.perf_counter() - t0
+                st = eng.stats()
+                k = st["recovered_to_seq"]
+                want = sum(1 for kind, _ in stream[2][:op]
+                           if kind != "checkpoint") + int(
+                               point != "pre_manifest_rename")
+                if k != want:
+                    raise AssertionError(f"crash at {point}: {k} durable "
+                                         f"records, expected {want}")
+                dig = durable_digest(eng, queries, dev)
+                eng.close()
+                for key, v in digests[k].items():
+                    _same_arrays(dig[key], v, f"crash at {point}, {key}")
+                crashes.append(dict(
+                    point=point, op=op, exit=p.returncode, records=k,
+                    replayed=st["recovered_replayed"],
+                    truncated_bytes=st["recovered_truncated_bytes"],
+                    epoch=st["recovered_epoch"], reopen_s=reopen_s,
+                    identical=sorted(dig)))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    emit("durability", n=n, d=d, cap=cap, base_s=out["base_s"],
+         record_ops=record_ops,
+         **{f"{w}_{k}": runs[w][k] for w in runs
+            for k in ("open_s", "stream_s", "close_s", "wal_bytes",
+                      "wal_fsyncs", "wal_records", "epoch")},
+         pq_adc_launches=launched[0], row_gather_launches=launched[1],
+         identical=["manifest (without snapshot_crc)", "snapshot arrays",
+                    "WAL records"], crashes=crashes)
+    return launched
 
 
 def synthetic_descriptors(gen, n, d, dev, clusters=1024, intrinsic=16,
@@ -910,8 +1385,9 @@ def tiered_stream_step(eng, state, draw, dev, i, rows, q_rows=1024,
     queries (recall against brute force over the alive set; pq_adc and
     row_gather launches counted) and the step's first 1,024 inserted
     vectors (read-after-write), and check no deleted id comes back.
-    ``state`` holds the vectors on the card, the deleted ids and the
-    oldest live id."""
+    ``state`` holds the vectors on the card, the deleted ids, the oldest
+    live id and, optionally, ``attrs``: a function of a row count giving
+    the inserted rows' attribute columns."""
     import torch
     from repro_torch.core.search import recall_at_k
     from repro_torch.kernels.pq_adc import kernel as PK
@@ -919,8 +1395,9 @@ def tiered_stream_step(eng, state, draw, dev, i, rows, q_rows=1024,
     be = eng._backend
     new_t = draw(rows)
     new = new_t.cpu().numpy()
+    attrs = state["attrs"](rows) if "attrs" in state else None
     t = time.perf_counter()
-    ids = eng.insert(new)
+    ids = eng.insert(new, attributes=attrs)
     ins_s = time.perf_counter() - t
     state["vecs"] = torch.cat([state["vecs"], new_t])
     old = np.arange(state["oldest"], state["oldest"] + rows)
@@ -1127,37 +1604,101 @@ def phase_tiered_stages(eng, queries, top=20):
               for (f, line, name), (_, nc, tt, ct, _) in rows])
 
 
-def tiered_config(td, seed, cap=1 << 20):
+def tiered_config(td, seed, cap=1 << 20, attributes=None):
     """The three-tier configuration of the tiered phases, on a disk tier
-    of ``cap`` rows in the directory ``td``."""
+    of ``cap`` rows in the directory ``td``, with the write-ahead log at
+    its defaults (on, group commit 8, a snapshot every 512 update
+    batches) and the attribute schema ``attributes``."""
     from repro_torch.core.engine import EngineConfig
     from repro_torch.core.types import SearchParams
     return EngineConfig(
         degree=32, cache_slots=131_072, capacity=cap,
         search=SearchParams(k=10, pool=64, max_iters=64, beam=16),
-        seed=seed, disk_path=td, disk_capacity=cap, wal_enabled=False,
-        pq_enabled=True, pq_m=16, pq_bits=8, rerank_depth=32,
-        topo_cache_slots=0, fused_rounds=0, speculate=True, prefetch=True,
-        spec_rank="auto", cache_dtype="bf16")
+        seed=seed, disk_path=td, disk_capacity=cap, pq_enabled=True,
+        pq_m=16, pq_bits=8, rerank_depth=32, topo_cache_slots=0,
+        fused_rounds=0, speculate=True, prefetch=True, spec_rank="auto",
+        cache_dtype="bf16", attributes=attributes)
+
+
+def filtered_requests(eng, vecs, queries, specs, dev, k=10):
+    """Filtered requests through ``engine.search``: per request its path,
+    the sampled selectivity, latency, recall@10 against an exact scan of
+    the alive matched set on the card, the (pq_adc, row_gather) launches
+    and the request's peak device memory above what was allocated."""
+    import torch
+    from repro_torch.core.filters import compile_filter, host_pass
+    from repro_torch.core.search import brute_force_topk, recall_at_k
+    from repro_torch.core.types import GraphState
+    from repro_torch.kernels.pq_adc import kernel as PK
+    from repro_torch.kernels.row_gather import kernel as RK
+    be = eng._backend
+    n = be.n
+    rows = []
+    for name, spec in specs:
+        cf = compile_filter(spec, be.attrs.schema)
+        ok = host_pass(cf, be.attrs.tags[:n], be.attrs.nums[:n]) \
+            & be.alive[:n]
+        g = GraphState(vecs[:n], None, torch.as_tensor(ok, device=dev),
+                       None, None, None)
+        for q in queries:
+            truth = brute_force_topk(g, q, k)[0]
+            q_host = q.cpu().numpy()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            l0 = (PK.launches, RK.launches)
+            t = time.perf_counter()
+            ids, dists = eng.search(q_host, filter=spec)
+            dt = time.perf_counter() - t
+            peak = torch.cuda.max_memory_allocated() - base
+            st = eng.stats()
+            rec = float(recall_at_k(torch.as_tensor(ids, device=dev), truth))
+            live = ids[ids >= 0]
+            row = dict(spec=name, path=st["filter_last_path"],
+                       selectivity=st["filter_last_selectivity"],
+                       matched=int(ok.sum()), queries=len(q_host),
+                       latency_s=dt, qps=len(q_host) / dt,
+                       recall_at_10=rec,
+                       pq_adc_launches=PK.launches - l0[0],
+                       row_gather_launches=RK.launches - l0[1],
+                       peak_bytes=peak)
+            emit("tiered_filtered_request", **row)
+            rows.append(row)
+            if not ok[live].all() or not np.isfinite(dists[ids >= 0]).all():
+                raise AssertionError(f"filtered request {name}: an id "
+                                     "that fails the filter, or a non-"
+                                     "finite distance")
+    return rows
 
 
 def phase_tiered_main(gen, dev, seed, n=1_000_000, d=96, sizes=(1024,) * 8
                       + (10_240,), recall_q=1024, min_recall=0.5,
-                      write_steps=4, write_rows=2048):
+                      write_steps=4, write_rows=2048, filtered_q=3,
+                      min_graph_filter_recall=0.2):
     """The three-tier engine at Deep1B's published width
     (configs/svfusion_deep1b.py: D=96, degree 32, pool 64, k=10, 64 hops
     at beam 16, 131,072 exact-cache slots in bf16) with the PQ lane (m=16,
     8 bits, re-rank depth 32), the topology cache at full residency, no
-    K-round cap, speculation and prefetch on; N cut to 1M synthetic rows
-    on a 2^20-row disk tier in a temporary directory. Returns the
-    (pq_adc, row_gather) launches made by the requests. Then the
-    sliding-window write stream, ``write_steps`` steps of ``write_rows``
-    (the disk tier holds 48,576 more rows) and the profile of one
-    512-row insert. Its consolidation runs on a smaller index
-    (``phase_tiered_consolidation``): the host pass over 1M rows takes
-    about 14 minutes."""
+    K-round cap, speculation and prefetch on, the WAL at its defaults and
+    an attribute schema of one 16-value tag and one uniform score (drawn
+    from the seed); N cut to 1M synthetic rows on a 2^20-row disk tier in
+    a temporary directory. Returns the (pq_adc, row_gather) launches of
+    the unfiltered requests and of the filtered ones. After the
+    requests: stats, a profile, a wall-time split by stage,
+    ``filtered_q`` 1,024-query requests at ~50% selectivity (graph path)
+    and at ~2% (brute-force scan), the sliding-window write stream
+    (``write_steps`` steps of ``write_rows`` with attributes; WAL bytes
+    and fsyncs), the profile of one 512-row insert; then ``close()`` (the
+    final publish), a reopen with ``init_vectors=None`` and the same
+    unfiltered and filtered ``search_tiered`` calls, which must return
+    identical ids and distances. The consolidation runs on a smaller
+    index (``phase_tiered_consolidation``)."""
+    import os
+
     import torch
+    from repro_torch.core import wal
     from repro_torch.core.engine import SVFusionEngine
+    from repro_torch.core.filters import AttributeSchema, FilterSpec
     from repro_torch.core.search import brute_force_topk, recall_at_k
     from repro_torch.core.types import GraphState
     from repro_torch.kernels.pq_adc import kernel as PK
@@ -1165,16 +1706,28 @@ def phase_tiered_main(gen, dev, seed, n=1_000_000, d=96, sizes=(1024,) * 8
     draw = synthetic_descriptors(gen, n, d, dev)
     vecs = draw(n)
     queries = [draw(b) for b in sizes]
+    fq = [draw(1024) for _ in range(filtered_q)]
+    rng = np.random.default_rng(seed + 1)
+
+    def attrs(m):
+        return {"tag": rng.integers(0, 16, m),
+                "score": rng.random(m).astype(np.float32)}
+    schema = AttributeSchema(tag_fields=("tag",), num_fields=("score",),
+                             tag_domain=16)
+    specs = (("half", FilterSpec(tags={"tag": set(range(8))})),
+             ("two_pct", FilterSpec(ranges={"score": (0.0, 0.02)})))
     with tempfile.TemporaryDirectory() as td:
-        cfg = tiered_config(td, seed)
+        cfg = tiered_config(td, seed, attributes=schema)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        eng = SVFusionEngine(vecs.cpu().numpy(), cfg)
+        eng = SVFusionEngine(vecs.cpu().numpy(), cfg, init_attrs=attrs(n))
         torch.cuda.synchronize()
         emit("build_tiered", n=n, d=d, build_s=time.perf_counter() - t0,
              **eng.build_timings,
-             peak_device_bytes=torch.cuda.max_memory_allocated())
+             peak_device_bytes=torch.cuda.max_memory_allocated(),
+             durable_epoch=eng.stats()["durable_epoch"],
+             disk_bytes=sum(f.stat().st_size for f in Path(td).iterdir()))
         try:
             everything = GraphState(vecs, None, torch.ones(
                 n, dtype=torch.bool, device=dev), None, None, None)
@@ -1218,16 +1771,101 @@ def phase_tiered_main(gen, dev, seed, n=1_000_000, d=96, sizes=(1024,) * 8
                                     if k != "slo"})
             phase_profile(eng, queries[:3], phase="tiered_profile")
             phase_tiered_stages(eng, queries[:3])
-            state = dict(vecs=vecs, deleted=[], oldest=0)
-            for i in range(write_steps):
-                tiered_stream_step(eng, state, draw, dev, i, write_rows)
+            # the filtered path, counted alone
+            PK.launches = RK.launches = 0
+            frows = filtered_requests(eng, vecs, fq, specs, dev)
+            f_launched = (PK.launches, RK.launches)
+            paths = {r["spec"]: {x["path"] for x in frows
+                                 if x["spec"] == r["spec"]} for r in frows}
+            # recall floors that catch a broken lane: the graph path's
+            # walk only crosses vertices that pass the filter (the
+            # reference's in-scan masking), so at 50% selectivity it
+            # reaches less than the unfiltered walk; the card equals the
+            # CPU and the reference there (parity phase)
+            floors = {"graph": min_graph_filter_recall,
+                      "fallback": min_recall}
+            if paths != {"half": {"graph"}, "two_pct": {"fallback"}} or \
+                    min(f_launched) == 0 or min(
+                        r["pq_adc_launches"] for r in frows) == 0 or any(
+                        r["recall_at_10"] < floors[r["path"]]
+                        for r in frows):
+                raise AssertionError(
+                    f"filtered requests: paths {paths}, launches "
+                    f"{f_launched}, recall@10 "
+                    f"{[round(r['recall_at_10'], 3) for r in frows]}")
+            state = dict(vecs=vecs, deleted=[], oldest=0, attrs=attrs)
+            log = eng._wal
+            w0 = (log.bytes, log.fsyncs, log.appended)
+            # the log's own time inside the stream: appends (pickling,
+            # the unbuffered write, the group-commit fsyncs) and fsyncs
+            acc = {}
+            undo = [_timed(wal.WriteAheadLog, "append", acc),
+                    _timed(os, "fsync", acc)]
+            t0 = time.perf_counter()
+            try:
+                for i in range(write_steps):
+                    tiered_stream_step(eng, state, draw, dev, i, write_rows)
+            finally:
+                for u in undo:
+                    u()
+            stream_s = time.perf_counter() - t0
+            if eng._wal is not log:
+                raise AssertionError("a checkpoint rotated the WAL mid-"
+                                     "stream; its counts would be cut")
+            emit("tiered_wal", steps=write_steps, rows=write_rows,
+                 stream_s=stream_s, append_s=acc.get("append", 0.0),
+                 fsync_s=acc.get("fsync", 0.0),
+                 append_share=acc.get("append", 0.0) / stream_s,
+                 records=log.appended - w0[2], bytes=log.bytes - w0[0],
+                 fsyncs=log.fsyncs - w0[1],
+                 group_commit=log.group_commit,
+                 bytes_per_inserted_row=(log.bytes - w0[0])
+                 / (write_steps * write_rows))
             prof_rows = draw(512)
-            device_profile(lambda: eng.insert(prof_rows.cpu().numpy()),
+            device_profile(lambda: eng.insert(prof_rows.cpu().numpy(),
+                                              attributes=attrs(512)),
                            "write_profile", mode="three-tier",
                            inserted=len(prof_rows))
+            probe_q = fq[0].cpu().numpy()
+            probe_specs = (None,) + tuple(sp for _, sp in specs)
+            before = tiered_probe(eng, probe_q, probe_specs, dev)
+            n_live = eng._backend.n
+        finally:
+            t0 = time.perf_counter()
+            eng.close()
+            close_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eng = SVFusionEngine(None, cfg)
+        torch.cuda.synchronize()
+        reopen_s = time.perf_counter() - t0
+        try:
+            after = tiered_probe(eng, probe_q, probe_specs, dev)
+            for spec, a, b in zip(("none", "half", "two_pct"), before,
+                                  after):
+                if not (np.array_equal(a.ids, b.ids)
+                        and np.array_equal(a.dists, b.dists)
+                        and a.filter_path == b.filter_path):
+                    raise AssertionError(f"reopened engine answers {spec} "
+                                         "differently")
+            st = eng.stats()
+            ids, dists = eng.search(queries[0].cpu().numpy())
+            rec = float(recall_at_k(torch.as_tensor(
+                ids[:recall_q], device=dev), truth[0]))
+            emit("tiered_reopen", close_s=close_s, reopen_s=reopen_s,
+                 recover_s=eng.build_timings.get("recover_s"),
+                 n=st["n"], recovered_epoch=st["recovered_epoch"],
+                 recovered_replayed=st["recovered_replayed"],
+                 identical=["ids", "dists", "filter_path"],
+                 paths=[r.filter_path for r in after],
+                 request_recall_at_10=rec, n_before_close=n_live)
+            if st["n"] != n_live or st["recovered_replayed"] != 0 or \
+                    rec < min_recall:
+                raise AssertionError(f"reopen: n {st['n']} vs {n_live}, "
+                                     f"replayed {st['recovered_replayed']}"
+                                     f", recall {rec}")
         finally:
             eng.close()
-    return launched
+    return launched, f_launched
 
 
 def phase_tiered_consolidation(gen, dev, seed, n=131_072, d=96, steps=2,
@@ -1262,10 +1900,16 @@ def main():
                     help="comma-separated subset of "
                     f"{','.join(PHASES)} (default: all; the kernels line "
                     "is printed only when all run)")
+    # the durability phase's crash children (see crash_child)
+    ap.add_argument("--crash-child", help=argparse.SUPPRESS)
+    ap.add_argument("--crash-point", help=argparse.SUPPRESS)
+    ap.add_argument("--crash-op", type=int, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs only on the "
                  "card")
+    if args.crash_child:
+        crash_child(args)
     only = args.only.split(",")
     if set(only) - set(PHASES):
         sys.exit(f"chip_smoke: unknown phases {set(only) - set(PHASES)}")
@@ -1296,32 +1940,42 @@ def main():
         emit("launch_floor", ms=floor_ms,
              method="cuda_ms of torch.cuda._sleep(0), 30 calls")
         l2 = phase_kernel(gen, dev)["capacity"]
-        pq = phase_kernel_pq(gen, dev)["round"]
+        pq_rows = phase_kernel_pq(gen, dev)
+        pq = pq_rows["round"]
         rows = phase_kernel_rows(gen, dev)
         topk, topk_launches = phase_kernel_topk_merge(gen, dev)
     if "parity" in only:
         phase_parity(gen, dev, sp)
         phase_tiered_parity(gen, dev, sp)
+        phase_filtered_parity(gen, dev, sp)
     if "write_parity" in only:
         phase_write_parity_device(gen, dev, sp)
         phase_write_parity_tiered(gen, dev, sp)
+    if "durability" in only:
+        phase_durability(gen, dev, args.seed)
     if "main" in only:
         l2_launches = phase_main(gen, dev, args.seed)
     if "tiered" in only:
-        pq_launches, row_launches = phase_tiered_main(gen, dev, args.seed)
+        (pq_launches, row_launches), (pq_filtered, row_filtered) = \
+            phase_tiered_main(gen, dev, args.seed)
     if "consolidation" in only:
         phase_tiered_consolidation(gen, dev, args.seed)
     emit("phases", ran=only, seconds=time.perf_counter() - t_run)
 
     if only == list(PHASES):
         src = "src/repro_torch/kernels/{0}/csrc/{0}.cu"
+        scan = {f"{k}_scan_{c}": pq_rows[f"scan_{c}"][k]
+                for c in (32_768, 131_072)
+                for k in ("ms", "plain_ms", "bound_ms", "call_peak_bytes")}
         kernels = [
             dict(name="l2_gather", replaces="src/repro/kernels/l2_gather/"
                  "kernel.py:54", launches=l2_launches, row=l2),
             dict(name="pq_adc", replaces="src/repro/kernels/pq_adc/"
-                 "kernel.py:74", launches=pq_launches, row=pq),
+                 "kernel.py:74", launches=pq_launches, row=pq,
+                 extra=dict(launches_filtered=pq_filtered, **scan)),
             dict(name="row_gather", replaces="src/repro/kernels/row_gather/"
-                 "kernel.py:57", launches=row_launches, row=rows),
+                 "kernel.py:57", launches=row_launches, row=rows,
+                 extra=dict(launches_filtered=row_filtered)),
             dict(name="topk_merge", replaces="src/repro/kernels/topk_merge/"
                  "kernel.py:73", launches=topk_launches, row=topk,
                  path="none: no caller in the engine, as in the reference; "
@@ -1335,7 +1989,8 @@ def main():
             "bound_ms": k["row"]["bound_ms"],
             "bound_by": k["row"]["bound_by"], "launch_floor_ms": floor_ms,
             "library_ms": k["row"].get("library_ms"), "checked": True,
-            **({"path": k["path"]} if "path" in k else {})}
+            **({"path": k["path"]} if "path" in k else {}),
+            **k.get("extra", {})}
             for k in kernels]}), flush=True)
         for k in kernels:
             if k["launches"] == 0:

@@ -11,7 +11,9 @@ reference's ``codebook_to_array`` output and codes),
 directory), ``host_placement_from_arrays`` and
 ``topo_cache_from_arrays``, so that both packages search one index.
 ``rev_log_from_arrays`` / ``rev_log_to_arrays`` carry a reverse-edge log
-(``update.RevLog``) for the MVCC merges.
+(``update.RevLog``) for the MVCC merges, and
+``attribute_store_from_arrays`` the attribute columns of filtered search
+(the reference's ``schema.to_meta()``, ``tags`` and ``nums``).
 """
 from __future__ import annotations
 
@@ -19,8 +21,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.cache import HostPlacement, TopoCache
+from repro_torch.core.filters import AttributeSchema
 from repro_torch.core.quant import PQCodes, codebook_from_array
-from repro_torch.core.tiers import DiskTier, TieredBackend, TieredStore
+from repro_torch.core.tiers import (AttributeStore, DiskTier, TieredBackend,
+                                    TieredStore)
 from repro_torch.core.types import CacheState, GraphState, IndexState, Stats
 from repro_torch.core.update import RevLog
 
@@ -109,3 +113,13 @@ def rev_log_to_arrays(log) -> tuple:
     """(v, v_new, d) numpy arrays of a RevLog of either form."""
     return tuple(x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
                  for x in log)
+
+
+def attribute_store_from_arrays(schema_meta: dict, tags, nums, capacity: int,
+                                device="cuda") -> AttributeStore:
+    """An AttributeStore of ``capacity`` ids from a schema's meta dict
+    (``AttributeSchema.to_meta``) and its columns ``tags`` [n, n_tags]
+    and ``nums`` [n, n_nums], with its mirror on ``device``."""
+    return AttributeStore(AttributeSchema.from_meta(schema_meta), capacity,
+                          tags=np.asarray(tags, np.int32),
+                          nums=np.asarray(nums, np.float32), device=device)

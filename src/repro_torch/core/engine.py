@@ -12,12 +12,17 @@ lock, so concurrent searches read the last published snapshot. Both
 modes take streaming inserts and deletes on one serialized update
 stream, with deletion-triggered repair and MVCC consolidation in a
 background thread (paper §5); ``MultiStreamRunner`` drives search
-streams and one update stream. The write-ahead log, recovery and
-``checkpoint`` are not ported (ROADMAP queue A.8).
+streams and one update stream. In three-tier mode every update is logged
+to the write-ahead log before it is applied, epochs are published as
+snapshots (at open, every ``snapshot_every_epochs`` update batches, on
+``checkpoint`` and at ``close``), and a ``disk_path`` holding a published
+manifest is recovered instead of rebuilt (``core/wal.py``); a failed log
+write turns the engine read-only. With ``attributes`` set, inserts carry
+per-id attribute columns and searches take a ``filter``
+(``core/filters.py``).
 """
 from __future__ import annotations
 
-import os
 import queue
 import threading
 import time
@@ -29,6 +34,7 @@ import torch
 
 from repro_torch.core import cache as Cache
 from repro_torch.core import mvcc, quant, slo, update
+from repro_torch.core import wal as walmod
 from repro_torch.core.build import (_exact_knn, build_index,
                                     build_tiered_backend, compute_e_in)
 from repro_torch.core.search import (effective_rerank_depth, search_batch,
@@ -397,8 +403,9 @@ class SVFusionEngine:
       device cache -> host window -> disk through ``search_tiered``, with
       the PQ code lane and the fused topology executor when
       ``cfg.pq_enabled``, and the host placement pass runs after each
-      batch. It needs ``wal_enabled=False``: durability is not ported
-      yet.
+      batch. With ``wal_enabled`` (the default) updates are logged and
+      the index survives the process; ``attributes`` enables filtered
+      search.
 
     Inserts and deletes serialize on the update stream in both modes:
     device mode through ``update.insert_batch`` / ``delete_batch`` with
@@ -409,22 +416,29 @@ class SVFusionEngine:
     consolidation on an MVCC snapshot (``consolidate_async``), at most
     ``max_versions`` in flight; the reverse edges inserted meanwhile are
     logged and re-applied at the merge.
-
-    Filtered search and durability are not ported yet: asking for them
-    raises ``NotImplementedError`` naming the ROADMAP item.
     """
 
     def __init__(self, init_vectors, cfg: EngineConfig, init_attrs=None):
         self.cfg = cfg
         self.device = torch.device(cfg.device)
+        self._init_attrs = init_attrs      # seed attributes (tiered mode)
+        self._wal = None                   # wal.WriteAheadLog (tiered mode)
+        self._recovery = None              # wal.recover report when reopened
+        self._durable_epoch = None         # last published manifest epoch
+        self._degraded = None              # read-only reason once WAL fails
+        self._batches_since_snapshot = 0
         if cfg.pq_enabled and not cfg.disk_path:
             raise ValueError(
                 "pq_enabled requires the three-tier mode (set disk_path): "
                 "the PQ code lane rides the tiered executor")
-        if cfg.attributes is not None or init_attrs is not None:
-            raise NotImplementedError(
-                "filtered search (attributes) is not ported yet: ROADMAP "
-                "queue A.9")
+        if cfg.attributes is not None and not cfg.disk_path:
+            raise ValueError(
+                "attributes (filtered search) require the three-tier mode "
+                "(set disk_path): the attribute store rides the tiered "
+                "backend")
+        if init_attrs is not None and cfg.attributes is None:
+            raise ValueError("init_attrs passed but cfg.attributes is "
+                             "unset: declare the attribute schema")
         self._key = torch.Generator(device=self.device)
         self._key.manual_seed(cfg.seed)
         self._state_lock = threading.RLock()   # publish/subscribe
@@ -463,6 +477,11 @@ class SVFusionEngine:
         self._spec_misses = 0
         self._topo_hits = 0            # fused-loop topology-cache hits
         self._topo_misses = 0
+        self._filtered_searches = 0    # filtered search batches
+        self._filter_fallbacks = 0     # ... of which took the brute-force
+        #                                low-selectivity path
+        self._filter_last_selectivity = None
+        self._filter_last_path = None
         self._coalescer = (CoalescingScheduler(
             self._search_exec, max_batch=cfg.coalesce_max_batch,
             max_window=cfg.coalesce_window,
@@ -480,51 +499,99 @@ class SVFusionEngine:
                                            "delete": []}
 
     def _init_tiered(self, init_vectors, cfg: EngineConfig):
-        if cfg.wal_enabled:
-            raise NotImplementedError(
-                "durability (wal_enabled with disk_path) is not ported yet: "
-                "ROADMAP queue A.8; pass wal_enabled=False")
-        if os.path.exists(os.path.join(cfg.disk_path, "manifest.json")):
-            raise NotImplementedError(
-                "disk_path holds a published durable index; recovering it "
-                "is not ported yet: ROADMAP queue A.8")
-        if init_vectors is None or not len(init_vectors):
-            raise ValueError("three-tier mode needs init_vectors to build "
-                             "from (recovery is not ported)")
-        init_vectors = np.asarray(init_vectors, np.float32)
-        if len(init_vectors) < 2 * cfg.degree:
-            raise ValueError("three-tier mode needs >= 2*degree seed "
-                             "vectors to bootstrap the graph")
         if cfg.cache_dtype not in ("bf16", "fp32"):
             raise ValueError(f"cache_dtype must be bf16|fp32, got "
                              f"{cfg.cache_dtype!r}")
-        n, dim = init_vectors.shape
-        cap = cfg.disk_capacity or cfg.capacity
-        self._backend = build_tiered_backend(
-            init_vectors, cfg.degree, cfg.disk_path, disk_capacity=cap,
-            host_window=cfg.host_window, seed=cfg.seed,
-            n_partitions=cfg.build_partitions,
-            cross_samples=cfg.build_cross_samples, device=self.device,
-            timings=self.build_timings)
+        man = walmod.load_manifest(cfg.disk_path)
+        if man is not None:
+            # the directory holds a published durable epoch: recover it
+            # (snapshot + WAL replay) instead of rebuilding, and refuse
+            # ambiguous mixes
+            if init_vectors is not None and len(init_vectors):
+                raise ValueError(
+                    "disk_path holds a published durable index; pass "
+                    "init_vectors=None to recover it, or point disk_path "
+                    "at a fresh directory to build")
+            if self._init_attrs is not None:
+                raise ValueError(
+                    "disk_path holds a published durable index; seed "
+                    "attributes (init_attrs) only apply to a fresh build")
+            if not cfg.wal_enabled:
+                raise ValueError(
+                    "disk_path holds a published durable index but "
+                    "wal_enabled=False: recovering without a WAL would "
+                    "leave subsequent updates unlogged under a manifest "
+                    "that claims durability")
+            if bool(man.get("pq")) != bool(cfg.pq_enabled):
+                raise ValueError(
+                    f"pq_enabled={cfg.pq_enabled} does not match the "
+                    f"durable index (manifest pq={man.get('pq')!r})")
+            cap = int(man["capacity"])
+            t0 = time.perf_counter()
+            self._backend, self._wal, self._recovery = walmod.recover(
+                cfg.disk_path, host_window=cfg.host_window
+                or max(64, cap // 4), group_commit=cfg.wal_group_commit,
+                device=self.device)
+            self.build_timings["recover_s"] = time.perf_counter() - t0
+            self._durable_epoch = int(man["epoch"])
+            n, dim = self._backend.n, self._backend.dim
+        else:
+            if init_vectors is None or not len(init_vectors):
+                raise ValueError(
+                    "nothing to recover: disk_path has no published "
+                    "manifest and no init_vectors were given")
+            init_vectors = np.asarray(init_vectors, np.float32)
+            if len(init_vectors) < 2 * cfg.degree:
+                raise ValueError("three-tier mode needs >= 2*degree seed "
+                                 "vectors to bootstrap the graph")
+            n, dim = init_vectors.shape
+            cap = cfg.disk_capacity or cfg.capacity
+            self._backend = build_tiered_backend(
+                init_vectors, cfg.degree, cfg.disk_path, disk_capacity=cap,
+                host_window=cfg.host_window, seed=cfg.seed,
+                n_partitions=cfg.build_partitions,
+                cross_samples=cfg.build_cross_samples, device=self.device,
+                timings=self.build_timings)
+        if cfg.attributes is not None:
+            from repro_torch.core.tiers import AttributeStore
+            if self._backend.attrs is None:
+                if man is not None:
+                    # a manifest from before the attribute store: recover
+                    # with an empty one (every column at its default)
+                    self._backend.attach_attrs(AttributeStore(
+                        cfg.attributes, cap, device=self.device))
+                else:
+                    tags, nums = cfg.attributes.coerce(self._init_attrs, n)
+                    self._backend.attach_attrs(AttributeStore(
+                        cfg.attributes, cap, tags=tags, nums=nums,
+                        device=self.device))
+            elif self._backend.attrs.schema != cfg.attributes:
+                raise ValueError(
+                    f"attribute schema mismatch: config declares "
+                    f"{cfg.attributes}, the durable index recovered "
+                    f"{self._backend.attrs.schema}")
         self._placement = Cache.HostPlacement(
             cap, cfg.cache_slots, dim,
             dtype=torch.bfloat16 if cfg.cache_dtype == "bf16"
             else torch.float32)
         if cfg.pq_enabled:
-            # train per-subspace Lloyd codebooks on a sample, encode the
-            # seed set, attach the unconditionally resident code lane
-            t0 = time.perf_counter()
-            m = quant.choose_m(dim, cfg.pq_m)
-            cb = quant.train_codebook(
-                init_vectors, m, cfg.pq_bits, iters=cfg.pq_train_iters,
-                sample=cfg.pq_train_sample, seed=cfg.seed,
-                device=self.device)
-            self._backend.attach_pq(quant.PQCodes(
-                cb, cap, codes=quant.encode(cb, init_vectors)))
-            self.build_timings["pq_s"] = time.perf_counter() - t0
+            if self._backend.pq is None:
+                # fresh build: train per-subspace Lloyd codebooks on a
+                # sample, encode the seed set, attach the resident code
+                # lane (recovery attached it from the snapshot)
+                t0 = time.perf_counter()
+                m = quant.choose_m(dim, cfg.pq_m)
+                cb = quant.train_codebook(
+                    init_vectors, m, cfg.pq_bits, iters=cfg.pq_train_iters,
+                    sample=cfg.pq_train_sample, seed=cfg.seed,
+                    device=self.device)
+                self._backend.attach_pq(quant.PQCodes(
+                    cb, cap, codes=quant.encode(cb, init_vectors)))
+                self.build_timings["pq_s"] = time.perf_counter() - t0
             if cfg.topo_cache_slots >= 0:
                 # topology tier for the fused executor; 0 slots -> full
                 # residency, warmed so the first batch is already fused
+                # (a pure cache: recovery re-warms it here)
                 Cache.warm_topo_cache(self._backend, cfg.topo_cache_slots,
                                       device=self.device)
         # spec_rank="auto": probe the disk tier's per-row delta-fetch
@@ -553,6 +620,17 @@ class SVFusionEngine:
             stats=init_stats(self.device), tiered=self._backend)
         if cfg.prefetch:
             self._backend.store.start_prefetcher()
+        if cfg.wal_enabled:
+            if man is None:
+                # epoch 0: publish the fresh build, so that the first
+                # update already logs against a recoverable base
+                t0 = time.perf_counter()
+                manifest, self._wal = walmod.publish_snapshot(
+                    cfg.disk_path, self._backend, None,
+                    group_commit=cfg.wal_group_commit)
+                self.build_timings["publish_s"] = time.perf_counter() - t0
+                self._durable_epoch = int(manifest["epoch"])
+            self._backend.wal = self._wal
 
     # ------------------------------------------------------------------
     def _next_key(self) -> torch.Generator:
@@ -690,6 +768,7 @@ class SVFusionEngine:
             rerank_depth=rerank_depth,
             topo=(backend.topo if self.cfg.pq_enabled else None),
             fused_rounds=self.cfg.fused_rounds, filter=filter,
+            filter_fallback_selectivity=self.cfg.filter_fallback_selectivity,
             device=self.device)
         if Bp != B:   # drop pad lanes from results AND placement logs
             res = res._replace(ids=res.ids[:B], dists=res.dists[:B],
@@ -703,6 +782,12 @@ class SVFusionEngine:
             self._spec_misses += res.spec_misses
             self._topo_hits += res.topo_hits
             self._topo_misses += res.topo_misses
+            if res.filter_path != "none":
+                self._filtered_searches += 1
+                if res.filter_path == "fallback":
+                    self._filter_fallbacks += 1
+                self._filter_last_selectivity = res.filter_selectivity
+                self._filter_last_path = res.filter_path
         if update_cache:
             with self._cache_lock:
                 Cache.apply_wavp_host(
@@ -721,18 +806,30 @@ class SVFusionEngine:
         """Insert vectors (chunked so each chunk links into the graph the
         previous chunks built; a near-empty device-mode index is
         bootstrapped with an exact KNN stitch among the first chunk).
+        ``attributes`` (per-field columns, see
+        ``filters.AttributeSchema.coerce``) tags the rows for filtered
+        search; it needs the three-tier mode with ``cfg.attributes``.
         Returns the new ids."""
-        if attributes is not None:
-            raise NotImplementedError("filter attributes are not ported "
-                                      "yet: ROADMAP queue A.9")
         t0 = time.perf_counter()
+        self._check_writable()
         vectors = np.asarray(vectors, np.float32)
+        attr_cols = None
+        if attributes is not None:
+            if self._backend is None or self._backend.attrs is None:
+                raise ValueError("insert(attributes=...) requires the "
+                                 "three-tier mode with cfg.attributes set")
+            attr_cols = self._backend.attrs.schema.coerce(attributes,
+                                                          len(vectors))
         out = []
         with self._update_lock:
             for s in range(0, len(vectors), chunk):
                 part_np = vectors[s:s + chunk]
                 if self._backend is not None:
-                    out.append(self._insert_tiered(part_np))
+                    part_attrs = None
+                    if attr_cols is not None:
+                        part_attrs = (attr_cols[0][s:s + chunk],
+                                      attr_cols[1][s:s + chunk])
+                    out.append(self._insert_tiered(part_np, part_attrs))
                     continue
                 part = torch.as_tensor(part_np, device=self.device)
                 st = self._state
@@ -754,16 +851,22 @@ class SVFusionEngine:
                 self._batches_since_repair += 1
                 out.append(ids.cpu().numpy())
         self._maybe_maintain()
+        self._maybe_checkpoint()
         self.latencies["insert"].append(time.perf_counter() - t0)
         return np.concatenate(out) if out else np.zeros((0,), np.int32)
 
-    def _insert_tiered(self, part_np):
-        """One three-tier insert chunk (caller holds the update lock)."""
+    def _insert_tiered(self, part_np, part_attrs=None):
+        """One three-tier insert chunk (caller holds the update lock). A
+        failed log write leaves the store untouched and degrades the
+        engine to read-only."""
         with self._cache_lock:
             seed = int(self._rng.integers(0, 2 ** 31 - 1))
-        ids, rev = update.insert_tiered(self._backend, self._placement,
-                                        part_np, self.cfg.search, seed,
-                                        device=self.device)
+        try:
+            ids, rev = update.insert_tiered(
+                self._backend, self._placement, part_np, self.cfg.search,
+                seed, attributes=part_attrs, device=self.device)
+        except walmod.WALWriteError as e:
+            self._degrade(str(e))
         if self._snapshot_n is not None and len(rev.v):
             # consolidation in flight: log the window's reverse edges for
             # the MVCC merge
@@ -779,6 +882,7 @@ class SVFusionEngine:
                          self._placement.scores(self._backend.e_in))
         self._update_batches += 1
         self._batches_since_repair += 1
+        self._batches_since_snapshot += 1
         return np.asarray(ids)
 
     def _bootstrap_insert(self, st, part):
@@ -811,9 +915,15 @@ class SVFusionEngine:
         """Logical deletion (paper §5.2.1). Out-of-range and already
         deleted ids are ignored."""
         t0 = time.perf_counter()
+        self._check_writable()
         with self._update_lock:
             if self._backend is not None:
-                update.delete_tiered(self._backend, ids)
+                # bounds/alive filtering and log-before-write live in
+                # update.delete_tiered
+                try:
+                    update.delete_tiered(self._backend, ids)
+                except walmod.WALWriteError as e:
+                    self._degrade(str(e))
             else:
                 st2 = update.delete_batch(
                     self._state, torch.as_tensor(np.asarray(ids, np.int32),
@@ -821,8 +931,53 @@ class SVFusionEngine:
                 self._publish(st2)
             self._update_batches += 1
             self._batches_since_repair += 1
+            self._batches_since_snapshot += 1
         self._maybe_maintain()
+        self._maybe_checkpoint()
         self.latencies["delete"].append(time.perf_counter() - t0)
+
+    # ------------------------------------------------------------------
+    # durability (core/wal.py)
+    def _check_writable(self):
+        if self._degraded:
+            raise ReadOnlyEngineError(
+                f"engine is read-only (WAL degraded): {self._degraded}")
+
+    def _degrade(self, reason: str):
+        """Log device failure: the engine turns read-only. The failing op
+        was not applied (log before write); searches keep serving the
+        state before the failure."""
+        self._degraded = reason
+        raise ReadOnlyEngineError(
+            f"WAL write failed; engine degraded to read-only: {reason}")
+
+    def checkpoint(self) -> Optional[int]:
+        """Publish the current state as a durable epoch (fsynced snapshot,
+        manifest rename, log segment rotation; ``wal.publish_snapshot``).
+        Returns the epoch, or None when the engine has no log (device
+        mode, or ``wal_enabled=False``)."""
+        if self._wal is None or self._wal.closed:
+            return None
+        self._check_writable()
+        with self._update_lock:
+            try:
+                manifest, new_wal = walmod.publish_snapshot(
+                    self.cfg.disk_path, self._backend, self._wal,
+                    group_commit=self.cfg.wal_group_commit)
+            except (OSError, walmod.WALWriteError) as e:
+                self._degrade(f"snapshot publish failed: {e}")
+            self._wal = new_wal
+            self._backend.wal = new_wal
+            self._durable_epoch = int(manifest["epoch"])
+            self._batches_since_snapshot = 0
+        return self._durable_epoch
+
+    def _maybe_checkpoint(self):
+        k = self.cfg.snapshot_every_epochs
+        if (self._wal is None or self._degraded or k <= 0
+                or self._batches_since_snapshot < k):
+            return
+        self.checkpoint()
 
     # ------------------------------------------------------------------
     def _maybe_maintain(self):
@@ -912,6 +1067,9 @@ class SVFusionEngine:
                     # per-batch logs, replayed in order by the merge
                     mvcc.merge_consolidated_tiered(
                         self._backend, snap, new_rows, list(self._rev_logs))
+            except walmod.WALWriteError as e:
+                # merge not applied (log before write): read-only from now
+                self._degraded = str(e)
             finally:
                 with self._state_lock:
                     self._snapshot_n = None
@@ -933,10 +1091,6 @@ class SVFusionEngine:
         for th in self._bg_threads:
             th.join()
         self._bg_threads = []
-
-    def checkpoint(self):
-        raise NotImplementedError("durability (checkpoint) is not ported "
-                                  "yet: ROADMAP queue A.8")
 
     @property
     def state(self) -> IndexState:
@@ -999,16 +1153,25 @@ class SVFusionEngine:
         d["spec_rank_resolved"] = self._spec_rank
         if self._spec_probe_us is not None:
             d["spec_probe_us_per_row"] = self._spec_probe_us
-        # no WAL and no filters in the port yet (ROADMAP A.8, A.9): these
-        # keep the reference's keys at their idle values
-        d["degraded"] = False
-        d["wal_enabled"] = False
-        d["filtered_searches"] = 0
-        d["filter_fallbacks"] = 0
-        d["filter_last_selectivity"] = None
-        d["filter_last_path"] = None
+        # durability: the degraded flag is the read-only contract
+        d["degraded"] = bool(self._degraded)
+        d["wal_enabled"] = self._wal is not None
+        if self._wal is not None:
+            d["wal_last_seq"] = self._wal.last_seq
+            d["wal_records"] = self._wal.appended
+            d["durable_epoch"] = self._durable_epoch
+        d["filtered_searches"] = self._filtered_searches
+        d["filter_fallbacks"] = self._filter_fallbacks
+        d["filter_last_selectivity"] = self._filter_last_selectivity
+        d["filter_last_path"] = self._filter_last_path
         d["filter_fallback_selectivity"] = \
             self.cfg.filter_fallback_selectivity
+        if self._recovery is not None:
+            d["recovered_epoch"] = self._recovery["epoch"]
+            d["recovered_replayed"] = self._recovery["replayed"]
+            d["recovered_to_seq"] = self._recovery["last_seq"]
+            d["recovered_truncated_bytes"] = \
+                self._recovery["truncated_bytes"]
         bpt = be.bytes_per_tier()
         bpt["device_exact_cache"] = self._placement.vector_bytes
         d["bytes_per_tier"] = bpt
@@ -1027,13 +1190,22 @@ class SVFusionEngine:
 
     def close(self):
         """Wait for background consolidations, stop the coalescer's
-        dispatcher (failing any queued request) and, in three-tier mode,
-        the prefetcher, then flush the disk tier."""
+        dispatcher (failing any queued request), publish a final durable
+        epoch (a clean shutdown reopens with no WAL replay) and, in
+        three-tier mode, stop the prefetcher and flush the disk tier."""
         self.wait_background()
         if self._coalescer is not None:
             self._coalescer.stop()
+        if self._wal is not None and not self._degraded \
+                and not self._wal.closed:
+            try:
+                self.checkpoint()
+            except ReadOnlyEngineError:   # the log died at shutdown: the
+                pass                      # last published epoch stands
         if self._backend is not None:
             self._backend.close()
+        if self._wal is not None:
+            self._wal.close()
 
 
 class MultiStreamRunner:

@@ -18,9 +18,9 @@ completion the background result G'_t0 is merged:
 The disk-tier form (``TieredSnapshot`` / ``snapshot_tiered`` /
 ``merge_consolidated_tiered``) freezes only adjacency rows and the alive
 bitset; vectors are immutable per id and keep streaming from the live
-store. The merge collects its edit set first and applies it with
-``apply_merge_edits``, as the reference does; the reference logs that
-edit set to its write-ahead log in between (not ported, ROADMAP A.8).
+store. The merge collects its edit set first, logs it as one record to
+the backend's write-ahead log when one is attached, and applies it with
+``apply_merge_edits``, which WAL replay shares.
 """
 from __future__ import annotations
 
@@ -33,6 +33,7 @@ from repro_torch.core.build import compute_e_in
 from repro_torch.core.types import IndexState
 from repro_torch.core.update import (RevLog, _reverse_edge_scatter,
                                      reverse_edge_rows_host)
+from repro_torch.core.wal import REC_CONSOLIDATE, crash_point
 
 
 def merge_consolidated(consolidated: IndexState, active: IndexState,
@@ -186,16 +187,22 @@ def merge_consolidated_tiered(backend, snap: TieredSnapshot, new_rows,
             a_rows.append(r[sel])
     if a_ids:
         edits.append((np.concatenate(a_ids), np.concatenate(a_rows)))
+
+    if backend.wal is not None:
+        backend.wal.append(REC_CONSOLIDATE, {
+            "ids": [np.asarray(g[0], np.int64) for g in edits],
+            "rows": [np.asarray(g[1], np.int32) for g in edits]})
     apply_merge_edits(backend, edits, chunk=chunk)
 
 
 def apply_merge_edits(backend, edits, chunk=4096) -> None:
-    """Mutation half of ``merge_consolidated_tiered``: write each (ids,
-    rows) edit group in order, with incremental e_in accounting against
-    the rows being replaced. e_in is published in one assignment at the
-    end."""
+    """Mutation half of ``merge_consolidated_tiered``, shared with WAL
+    replay: write each (ids, rows) edit group in order, with incremental
+    e_in accounting against the rows being replaced. e_in is published
+    in one assignment at the end."""
     store = backend.store
     e_in = backend.e_in.copy()
+    first = True
     for gids, grows in edits:
         gids = np.asarray(gids, np.int64)
         grows = np.asarray(grows, np.int32)
@@ -207,4 +214,7 @@ def apply_merge_edits(backend, edits, chunk=4096) -> None:
             np.add.at(e_in, new[new >= 0], 1)
             store.write(ids, None, new)
             backend.version[ids] += 1
+            if first:               # merge partly written, the rest pending
+                crash_point("mid_consolidation_merge")
+                first = False
     backend.e_in = e_in

@@ -205,6 +205,13 @@ class PQCodes:
                 self._dirty.clear()
             return self._codes_t
 
+    def snapshot(self, n: int) -> np.ndarray:
+        """Copy of the host-truth codes over [0, n) for the durability
+        snapshot, taken under the write-through lock so that a concurrent
+        ``encode_write`` cannot tear it."""
+        with self._lock:
+            return self.codes[:n].copy()
+
     def code_bytes(self, n: int = None) -> int:
         """Device-resident code footprint (bytes) over ``n`` ids (whole
         array when None)."""

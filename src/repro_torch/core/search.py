@@ -22,6 +22,10 @@ equal-distance pool entries through the packed path.
   (``row_gather``). The reference overlaps its speculative host stage
   with the in-flight dispatch; the port's fused loop reads back every
   round, so here the stage runs after the dispatch. Results are the same.
+  A filter (``core/filters.py``) joins the invalid-lane masking of
+  either lane; below the selectivity threshold a query takes the
+  brute-force scan over the matched ids instead (``pq_adc`` over
+  ``[B, Mp]`` ids in the PQ lane, then the exact re-rank).
 
 Every top-k and argsort goes through ``core.topk`` (lower index first on
 ties, as ``lax.top_k``), and every gather clips its ids first, as the
@@ -410,7 +414,8 @@ def _pq_fused_dispatch(pool_ids, pool_d, visited, curr, r, acc_ids,
 
 def _fused_topo_shell(store, topo, spec, alive, f_lam, pq, codes,
                       codes_epoch, lut, pool_ids, pool_d, visited, curr_t,
-                      beam, rounds, id_bound, fused_rounds, stage_width=0):
+                      beam, rounds, id_bound, fused_rounds, stage_width=0,
+                      alive_t=None):
     """Host shell around ``_pq_fused_dispatch``: the round loop when a
     topology cache is attached. Steady state is ONE fused dispatch over
     every remaining round; the host re-enters on a topology-cache miss
@@ -421,6 +426,9 @@ def _fused_topo_shell(store, topo, spec, alive, f_lam, pq, codes,
     runs with host-shipped ids. With speculation, the host stages store
     rows of the hottest non-resident next-hop candidates after each fused
     dispatch, so a later miss is a memo hit instead of disk IO.
+    ``alive_t``, when given, is the fused rounds' device alive mask (a
+    filtered search's ``alive & predicate``); otherwise ``alive`` is read
+    afresh at every dispatch.
 
     Returns (pool_ids, pool_d, acc [B, rounds, C] np.int32, rounds
     executed, dispatches issued, topo hits, topo misses)."""
@@ -464,7 +472,8 @@ def _fused_topo_shell(store, topo, spec, alive, f_lam, pq, codes,
             rows_t, h2s_t = topo.synced()
             out = _pq_fused_dispatch(
                 pool_ids, pool_d, visited, curr_t, r, acc_t, rows_t, h2s_t,
-                codes, lut, torch.as_tensor(alive, device=dev),
+                codes, lut, (alive_t if alive_t is not None
+                             else torch.as_tensor(alive, device=dev)),
                 min(r + K, rounds), beam, id_bound)
             dispatches += 1
             if spec is not None:
@@ -536,6 +545,8 @@ class TieredSearchResult(NamedTuple):
     spec_misses: int = 0  # frontier rows delta-fetched after read-back
     topo_hits: int = 0    # frontier ids resident in the topology cache
     topo_misses: int = 0  # frontier ids delta-fetched + installed
+    filter_path: str = "none"        # "none" | "graph" | "fallback"
+    filter_selectivity: float = 1.0  # admission-time sampled estimate
 
     @property
     def spec_hit_rate(self) -> float:
@@ -750,12 +761,95 @@ def _ship_unique_vectors(ids, valid, resolve):
     return uvec, uhit, inv.reshape(B, C).astype(np.int32)
 
 
+def _pow2_bucket(u: int, floor: int = 512) -> int:
+    """The reference's power-of-four bucket (512 floor) for a count; the
+    filtered scan pads its matched ids to it."""
+    b = floor
+    while b < u:
+        b *= 4
+    return b
+
+
+def _pq_filtered_scan_dispatch(codes, centroids, queries, cand_ids, depth):
+    """Brute-force ADC scan over a filtered id set, the fallback's coarse
+    stage: one ``pq_adc`` launch scores every matching id (``cand_ids``
+    [B, Mp] int32, -1 padded: +inf there) and keeps the top ``depth``
+    for the exact re-rank, ties to the lower lane. Returns (ids [B,
+    depth], -1 where the distance is not finite, and distances)."""
+    lut = adc_lut(centroids, queries)
+    d = adc_gather(codes, lut, cand_ids)
+    d = torch.where(cand_ids >= 0, d, INF)
+    dd, idx = smallest_k(d, depth)
+    ids = _take(cand_ids, idx)
+    return torch.where(torch.isfinite(dd), ids, -1), dd
+
+
+def _filtered_brute_force(backend, queries, qt, hmask, alive_snap, sp, pq,
+                          rerank_depth, h2d, cache_vec, f_lam, filter_sel,
+                          dev) -> TieredSearchResult:
+    """The selectivity fallback of ``search_tiered``: exact search over
+    the matched id set, no traversal. PQ lane: one ``pq_adc`` scan of
+    every match keeps the top ``rerank_depth``, then the exact re-rank;
+    exact lane: the re-rank alone over every match. The matched ids are
+    padded to a power-of-four bucket ``Mp`` and materialized as a
+    contiguous [B, Mp] int32 matrix, the shape the kernel reads."""
+    B = queries.shape[0]
+    k = sp.k
+    n = max(backend.n, 1)
+    matched = np.where(alive_snap[:n] & hmask[:n])[0]
+    if matched.size == 0:
+        z = np.zeros((B, 0), np.int32)
+        return TieredSearchResult(
+            np.full((B, k), -1, np.int32),
+            np.full((B, k), np.inf, np.float32),
+            z, z.astype(bool), 0, 0,
+            filter_path="fallback", filter_selectivity=filter_sel)
+    Mp = _pow2_bucket(matched.size)
+    cand = np.full((Mp,), -1, np.int64)
+    cand[:matched.size] = matched
+    dispatches = 0
+    if pq is not None:
+        codes = pq.synced_codes()
+        depth = min(effective_rerank_depth(rerank_depth, k, sp.pool), Mp)
+        cand_t = torch.as_tensor(cand.astype(np.int32), device=dev)
+        top_t, _ = _pq_filtered_scan_dispatch(
+            codes, pq.codebook.centroids, qt,
+            cand_t.expand(B, Mp).contiguous(), depth)
+        dispatches += 1
+        top_ids = top_t.cpu().numpy().astype(np.int64)
+    else:
+        top_ids = np.broadcast_to(cand, (B, Mp))
+    valid_r = top_ids >= 0
+    uvec, _, inv = _ship_unique_vectors(
+        top_ids, valid_r,
+        lambda u: _resolve_unique_vectors(u, h2d, cache_vec, backend.store,
+                                          f_lam))
+    ids_k, d_k = _pq_rerank_dispatch(
+        torch.as_tensor(top_ids.astype(np.int32), device=dev),
+        torch.as_tensor(uvec, device=dev), torch.as_tensor(inv, device=dev),
+        torch.as_tensor(valid_r, device=dev), qt, k)
+    dispatches += 1
+    ids_np = ids_k.cpu().numpy().astype(np.int32)
+    d_np = d_k.cpu().numpy().astype(np.float32)
+    if ids_np.shape[1] < k:      # fewer matches than k: pad the tail
+        pad = k - ids_np.shape[1]
+        ids_np = np.pad(ids_np, ((0, 0), (0, pad)), constant_values=-1)
+        d_np = np.pad(d_np, ((0, 0), (0, pad)), constant_values=np.inf)
+    acc = np.where(valid_r, top_ids, -1).astype(np.int32)
+    acc_hit = (h2d[np.clip(acc, 0, None)] >= 0) & (acc >= 0)
+    return TieredSearchResult(ids_np, d_np, acc, acc_hit, 0, dispatches,
+                              filter_path="fallback",
+                              filter_selectivity=filter_sel)
+
+
 def search_tiered(backend, cache_mirror, queries, seed, sp: SearchParams,
                   *, f_lam=None, prefetch_budget: int = 0,
                   entry_ids=None, speculate: bool = True,
                   spec_width: int = 0, spec_rank: str = "flam",
                   spec_predict=None, pq=None, rerank_depth: int = 0,
                   topo=None, fused_rounds: int = 0, filter=None,
+                  filter_fallback_selectivity: float = 0.0,
+                  filter_sample: int = 1024,
                   device="cuda") -> TieredSearchResult:
     """Hop-batched frontier search over a disk-backed graph (paper
     Algorithm 1 in its GPU-CPU-disk form), the twin of
@@ -782,12 +876,16 @@ def search_tiered(backend, cache_mirror, queries, seed, sp: SearchParams,
     ``device`` (PQ lane only): the round loop runs through the fused
     dispatch (``_pq_fused_dispatch``, ``_fused_topo_shell``) with at most
     ``fused_rounds`` rounds per dispatch (0 = uncapped); results equal
-    the per-round executor's. Filtered search is not ported yet
-    (ROADMAP queue A.9): ``filter`` raises.
+    the per-round executor's.
+
+    ``filter``: a ``filters.FilterSpec``; needs ``backend.attrs``. Its
+    selectivity is sampled over ``filter_sample`` ids, deterministic in
+    ``seed``: at or above ``filter_fallback_selectivity`` the predicate
+    joins the executor's invalid-lane masking (filtered-out candidates
+    never enter the pool), below it the query takes the brute-force scan
+    over the matched set (``_filtered_brute_force``). The path and the
+    estimate ride the result (``filter_path``, ``filter_selectivity``).
     """
-    if filter is not None:
-        raise NotImplementedError("filtered search is not ported yet: "
-                                  "ROADMAP queue A.9")
     dev = torch.device(device)
     store = backend.store
     alive = backend.alive
@@ -806,6 +904,36 @@ def search_tiered(backend, cache_mirror, queries, seed, sp: SearchParams,
     n = max(backend.n, 1)
     id_bound = int(backend.capacity)
     qt = torch.as_tensor(queries, device=dev)
+
+    # --- predicate lane (core/filters.py) -------------------------------
+    filter_path, filter_sel = "none", 1.0
+    alive_t = None
+    if filter is not None:
+        from repro_torch.core.filters import (compile_filter,
+                                              device_pass_mask,
+                                              estimate_selectivity,
+                                              host_pass)
+        attrs = backend.attrs
+        if attrs is None:
+            raise ValueError("filtered search requires an attached "
+                             "attribute store (EngineConfig.attributes)")
+        cf = compile_filter(filter, attrs.schema)
+        hmask = host_pass(cf, attrs.tags, attrs.nums)
+        filter_sel = estimate_selectivity(cf, attrs, alive, backend.n,
+                                          sample=filter_sample, seed=seed)
+        if filter_sel < filter_fallback_selectivity:
+            # a graph walk would starve: brute-force scan the matched set
+            return _filtered_brute_force(backend, queries, qt, hmask, alive,
+                                         sp, pq, rerank_depth, h2d,
+                                         cache_vec, f_lam, filter_sel, dev)
+        filter_path = "graph"
+        # the predicate folds into the executor's invalid-lane masking
+        # (entry pool, every round's valid lanes); the fused rounds read
+        # its device twin, ANDed from the attribute mirror
+        alive = alive & hmask                         # np copy, not a view
+        if pq is not None and topo is not None:
+            alive_t = torch.as_tensor(backend.alive, device=dev) \
+                & device_pass_mask(attrs, cf)
 
     if entry_ids is None:
         rng = np.random.default_rng(seed)
@@ -873,7 +1001,7 @@ def search_tiered(backend, cache_mirror, queries, seed, sp: SearchParams,
             store, topo, spec, alive, f_lam, pq, codes, codes_epoch,
             lut, pool_ids, pool_d, visited, curr_t, beam, rounds,
             id_bound, fused_rounds,
-            stage_width=(width if spec is not None else 0))
+            stage_width=(width if spec is not None else 0), alive_t=alive_t)
         dispatches += extra
     else:
         for _ in range(rounds):
@@ -967,14 +1095,17 @@ def search_tiered(backend, cache_mirror, queries, seed, sp: SearchParams,
         dispatches += 1
         return TieredSearchResult(
             ids_k.cpu().numpy(), d_k.cpu().numpy(), flat, acc_hit_flat, it,
-            dispatches, spec_hits, spec_misses, topo_hits, topo_misses)
+            dispatches, spec_hits, spec_misses, topo_hits, topo_misses,
+            filter_path, filter_sel)
 
     pool_ids, pool_d = pool_ids.cpu().numpy(), pool_d.cpu().numpy()
     topk_ids = np.where(np.isfinite(pool_d[:, :k]), pool_ids[:, :k], -1)
     return TieredSearchResult(topk_ids.astype(np.int32), pool_d[:, :k],
                               acc_ids.reshape(B, -1),
                               acc_hit.reshape(B, -1), it, dispatches,
-                              spec_hits, spec_misses)
+                              spec_hits, spec_misses,
+                              filter_path=filter_path,
+                              filter_selectivity=filter_sel)
 
 
 def brute_force_topk(graph: GraphState, queries, k):

@@ -14,8 +14,10 @@ residency and the store's write epoch before installing. Its queue is
 bounded: under overload new predictions are dropped. Free slots are
 handed out by a monotone cursor.
 
-The attribute store of filtered search is not ported yet (ROADMAP queue
-A.9): ``attach_attrs`` raises.
+``AttributeStore`` holds the per-id columns of filtered search, host
+truth and a torch mirror on the backend's device; ``TieredBackend.wal``
+is the write-ahead log the update path appends to before it mutates the
+store (``core/wal.py``).
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import threading
 from typing import Optional
 
 import numpy as np
+import torch
 
 
 class DiskTier:
@@ -305,6 +308,76 @@ class TieredStore:
         return self.misses / tot if tot else 0.0
 
 
+class AttributeStore:
+    """Per-id fixed-schema attribute columns for filtered search
+    (``core.filters``): one int32 column per tag field and one fp32
+    column per numeric field, over the whole id space.
+
+    The ``quant.PQCodes`` pattern: host-truth numpy columns written
+    through by ``update.insert_tiered``, a torch mirror on ``device``
+    that ``synced`` brings up to date with one ``index_copy_`` per column
+    into a copy (a search holding the previous mirror is never torn), and
+    a locked ``snapshot`` for the durability layer. Attributes are
+    immutable per id, so consolidation never rewrites them."""
+
+    def __init__(self, schema, capacity: int, tags=None, nums=None,
+                 device="cuda"):
+        self.schema = schema
+        self.capacity = int(capacity)
+        self.tags = np.zeros((self.capacity, schema.n_tags), np.int32)
+        self.nums = np.zeros((self.capacity, schema.n_nums), np.float32)
+        if tags is not None:
+            self.tags[:len(tags)] = np.asarray(tags, np.int32)
+        if nums is not None:
+            self.nums[:len(nums)] = np.asarray(nums, np.float32)
+        self._tags_t = torch.tensor(self.tags, device=device)
+        self._nums_t = torch.tensor(self.nums, device=device)
+        self._dirty: list = []
+        self._lock = threading.Lock()
+        self.written = 0    # ids written through (stats)
+
+    @property
+    def device(self) -> torch.device:
+        return self._tags_t.device
+
+    def write(self, ids, tags, nums):
+        """Write-through install for freshly inserted ids: host truth
+        now, the mirror at the next ``synced``."""
+        ids = np.asarray(ids, np.int64)
+        if not len(ids):
+            return
+        with self._lock:
+            self.tags[ids] = np.asarray(tags, np.int32)
+            self.nums[ids] = np.asarray(nums, np.float32)
+            self._dirty.append(ids.copy())
+            self.written += len(ids)
+
+    def synced(self):
+        """(tags, nums) mirror with every host write folded in, one
+        ``index_copy_`` per column however many batches accumulated."""
+        with self._lock:
+            if self._dirty:
+                ids = np.unique(np.concatenate(self._dirty))
+                self._dirty = []
+                idx = torch.as_tensor(ids, device=self.device)
+                self._tags_t = self._tags_t.clone().index_copy_(
+                    0, idx, torch.as_tensor(self.tags[ids],
+                                            device=self.device))
+                self._nums_t = self._nums_t.clone().index_copy_(
+                    0, idx, torch.as_tensor(self.nums[ids],
+                                            device=self.device))
+            return self._tags_t, self._nums_t
+
+    def snapshot(self, n: int):
+        """Consistent host-truth copy of the live prefix (the durability
+        snapshot; taken under the write lock)."""
+        with self._lock:
+            return self.tags[:n].copy(), self.nums[:n].copy()
+
+    def attr_bytes(self, n: int) -> int:
+        return int(n) * (self.schema.n_tags * 4 + self.schema.n_nums * 4)
+
+
 class TieredBackend:
     """Disk-backed capacity tier for ``SVFusionEngine``.
 
@@ -332,6 +405,12 @@ class TieredBackend:
         #                     device-resident adjacency rows for the fused
         #                     multi-round executor, F_λ-ordered residency,
         #                     epoch-fenced against store writes
+        self.wal = None     # wal.WriteAheadLog: when attached, the update
+        #                     path logs each op before mutating the store;
+        #                     owned by the engine
+        self.attrs = None   # AttributeStore (attach_attrs): per-id tag /
+        #                     numeric columns of the filtered search
+
     def attach_topo(self, topo) -> None:
         """Attach the device-resident topology row cache
         (``cache.TopoCache``). Its id->slot directory spans the whole id
@@ -359,9 +438,13 @@ class TieredBackend:
         self.pq = pq
 
     def attach_attrs(self, attrs) -> None:
-        raise NotImplementedError(
-            "the attribute store of filtered search is not ported yet: "
-            "ROADMAP queue A.9")
+        """Attach the per-id attribute lane (``AttributeStore``), which
+        spans the whole id space like alive/e_in."""
+        if attrs.capacity != self.capacity:
+            raise ValueError(
+                f"attribute store spans {attrs.capacity} ids, disk "
+                f"capacity is {self.capacity}")
+        self.attrs = attrs
 
     @property
     def capacity(self) -> int:
@@ -388,6 +471,8 @@ class TieredBackend:
                "host_resident": s.resident}
         if self.pq is not None:
             out["pq_encoded_incremental"] = self.pq.encoded
+        if self.attrs is not None:
+            out["attrs_written"] = self.attrs.written
         if self.topo is not None:
             t = self.topo
             out.update(topo_hits=t.hits, topo_misses=t.misses,
@@ -413,7 +498,9 @@ class TieredBackend:
             # executor's device-resident adjacency lane)
             "device_topo_rows": (self.topo.row_bytes
                                  if self.topo is not None else 0),
-            "host_attrs": 0,        # no attribute store (ROADMAP A.9)
+            # attribute columns: host and device resident like PQ codes
+            "host_attrs": (self.attrs.attr_bytes(self.n)
+                           if self.attrs is not None else 0),
         }
         return out
 

@@ -11,8 +11,11 @@ does: the reference draws it with ``jax.random``, which torch cannot
 reproduce. Its candidate search runs through ``l2_gather``.
 
 Tiered half: the reference's numpy, through the port's ``search_tiered``
-on ``device`` (exact lane). The write-ahead log and its crash points are
-not ported (ROADMAP queue A.8), nor the filter-attribute payload (A.9).
+on ``device`` (exact lane). Each op computes its full effect, appends it
+to the backend's write-ahead log when one is attached (``core/wal.py``;
+an insert's record carries its attribute columns when a store is
+attached) and then applies it through the function that recovery
+replays.
 
 Two rules keep the card and the CPU on the reference's answers:
 - Several reverse edges can land on one (row, slot): the reference keeps
@@ -36,6 +39,7 @@ from repro_torch.core.search import (_clip, _frontier_search, dedup_mask,
                                      dup_mask_jnp, search_tiered)
 from repro_torch.core.topk import argsort, largest_k, smallest_k
 from repro_torch.core.types import GraphState, IndexState, SearchParams
+from repro_torch.core.wal import (REC_DELETE, REC_INSERT, crash_point)
 
 INF = float("inf")
 
@@ -334,12 +338,11 @@ def insert_tiered(backend, cache_mirror, new_vecs, sp: SearchParams, seed,
     stream).
 
     The op's full effect (selected rows and reverse-edge triplets) is
-    computed against the unmutated store, then applied by
-    ``apply_insert_tiered``, as in the reference (whose write-ahead log
-    sits between the two; not ported, ROADMAP A.8)."""
-    if attributes is not None:
-        raise NotImplementedError("filter attributes are not ported yet: "
-                                  "ROADMAP queue A.9")
+    computed against the unmutated store, logged to ``backend.wal`` when
+    one is attached, then applied by ``apply_insert_tiered``, which WAL
+    replay shares. ``attributes`` (a dict of per-field columns, a
+    ``(tags, nums)`` pair, or None for the schema's defaults) needs an
+    attached ``backend.attrs`` store."""
     store = backend.store
     new_vecs = np.asarray(new_vecs, np.float32)
     Bi = new_vecs.shape[0]
@@ -377,15 +380,36 @@ def insert_tiered(backend, cache_mirror, new_vecs, sp: SearchParams, seed,
         d_edge = ((tvec[inv] - new_vecs[(flat_new - n0)]) ** 2).sum(-1)
     rev = RevLog(flat_t.astype(np.int64), flat_new.astype(np.int64),
                  np.asarray(d_edge, np.float32))
-    apply_insert_tiered(backend, ids, new_vecs, sel, rev, f_lam=f_lam)
+
+    # attribute columns, coerced through the index schema so that the
+    # log record and the live apply share one validated form
+    tags = nums = None
+    if backend.attrs is not None:
+        tags, nums = backend.attrs.schema.coerce(attributes, Bi)
+    elif attributes is not None:
+        raise ValueError("attributes passed but no attribute store is "
+                         "attached (set EngineConfig.attributes)")
+
+    if backend.wal is not None:
+        # numpy arrays only: the record must read back without torch
+        payload = {"ids": ids, "vecs": new_vecs, "sel": sel,
+                   "rev_v": rev.v, "rev_vn": rev.v_new, "rev_d": rev.d}
+        if tags is not None:
+            payload["tags"], payload["nums"] = tags, nums
+        backend.wal.append(REC_INSERT, payload)
+    apply_insert_tiered(backend, ids, new_vecs, sel, rev, f_lam=f_lam,
+                        tags=tags, nums=nums)
     return ids, rev
 
 
 def apply_insert_tiered(backend, ids, new_vecs, sel, rev: RevLog,
-                        f_lam=None) -> None:
-    """Mutation half of ``insert_tiered``: establish the new vertices,
-    encode their PQ codes against the frozen codebook, then apply the
-    reverse edges onto freshly fetched target rows."""
+                        f_lam=None, tags=None, nums=None) -> None:
+    """Mutation half of ``insert_tiered``, shared with WAL replay
+    (``wal.recover``): establish the new vertices, encode their PQ codes
+    against the frozen codebook, write their attribute columns, then
+    apply the reverse edges onto freshly fetched target rows. Replayed
+    over the snapshot, it walks the store through the live run's
+    writes."""
     store = backend.store
     ids = np.asarray(ids, np.int64)
     new_vecs = np.asarray(new_vecs, np.float32)
@@ -400,8 +424,11 @@ def apply_insert_tiered(backend, ids, new_vecs, sel, rev: RevLog,
     # establish new vertices (write-through keeps the overlay coherent);
     # the PQ code lane encodes incrementally against its frozen codebook
     store.write(ids, new_vecs, sel)
+    crash_point("mid_memmap_write")   # new rows written, reverse edges not
     if backend.pq is not None:
         backend.pq.encode_write(ids, new_vecs)
+    if backend.attrs is not None and tags is not None:
+        backend.attrs.write(ids, tags, nums)
     backend.alive[ids] = True
     backend.version[ids] = 1
     sel = np.asarray(sel, np.int32)
@@ -426,11 +453,14 @@ def apply_insert_tiered(backend, ids, new_vecs, sel, rev: RevLog,
 
 def delete_tiered(backend, ids) -> np.ndarray:
     """Logical deletion on the tiered backend (stage 1, paper §5.2.1):
-    bounds-filter, drop already-dead ids, then flip the bitset. Returns
-    the ids actually deleted. Caller serializes (engine update stream)."""
+    bounds-filter, drop already-dead ids, log the surviving set, then
+    flip the bitset. Returns the ids actually deleted. Caller serializes
+    (engine update stream)."""
     ids_np = np.asarray(ids, np.int64)
     ids_np = ids_np[(ids_np >= 0) & (ids_np < backend.n)]
     ids_np = ids_np[backend.alive[ids_np]]
+    if backend.wal is not None and ids_np.size:
+        backend.wal.append(REC_DELETE, {"ids": ids_np})
     apply_delete_tiered(backend, ids_np)
     return ids_np
 

@@ -1,7 +1,7 @@
 """The port's device-mode engine on the CPU: search through the coalescer
 and directly, recall, the entry draw, stats keys against the reference,
-and the parts that are not ported yet (the write path is held in
-``test_torch_update.py``)."""
+what device mode refuses and the part that is not ported yet (the write
+path is held in ``test_torch_update.py``)."""
 import numpy as np
 import pytest
 import torch
@@ -112,16 +112,18 @@ def test_config_keeps_every_reference_field():
 
 
 def test_unported_parts_raise(data, engine, tmp_path):
+    """The partitioned build (ROADMAP A.2) raises; durability and filters
+    keep the reference's device-mode contract: no log to checkpoint, no
+    attribute store."""
     vecs, _ = data
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TE.SVFusionEngine(vecs, cfg(disk_path=str(tmp_path),
-                                    wal_enabled=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+                                    build_partitions=2))
+    with pytest.raises(ValueError, match="three-tier"):
         TE.SVFusionEngine(vecs, cfg(attributes=object()))
-    for call in (engine.checkpoint,
-                 lambda: engine.insert(vecs[:2], attributes={"t": [0, 1]})):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    assert engine.checkpoint() is None
+    with pytest.raises(ValueError, match="three-tier"):
+        engine.insert(vecs[:2], attributes={"t": [0, 1]})
 
 
 def test_executor_errors_reach_the_caller(engine):

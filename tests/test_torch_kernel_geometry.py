@@ -151,6 +151,9 @@ def _pq_cover(geo, C):
     (33, 64, 1, 1),
     (300, 256, 2, 1),
     (1000, 256, 2, 2),
+    (8192, 256, 2, 16),     # the filtered scan's power-of-four buckets
+    (32_768, 256, 2, 64),
+    (131_072, 256, 2, 256),
 ])
 def test_pq_adc_geometry(C, block, per_thread, chunks):
     geo = PQ.launch_geometry(1024, C)

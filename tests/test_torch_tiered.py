@@ -281,7 +281,7 @@ def test_apply_wavp_host_matches_reference(cache_dtype, cascade):
 def _engine_kw(tmp, tag, **kw):
     return dict(degree=16, cache_slots=128, capacity=4096,
                 disk_path=str(tmp / tag), disk_capacity=4096,
-                host_window=375, seed=3, wal_enabled=False, **kw)
+                host_window=375, seed=3, **kw)
 
 
 def test_three_tier_engine_matches_reference_engine(tmp_path):
@@ -334,7 +334,7 @@ def test_pq_engine_recall_and_footprint(tmp_path):
         disk_path=str(tmp_path / "tier"), disk_capacity=8192,
         host_window=n // 4, search=SearchParams(k=10, pool=64, max_iters=96),
         pq_enabled=True, pq_m=16, pq_bits=8, rerank_depth=32,
-        wal_enabled=False, device="cpu"))
+        device="cpu"))
     try:
         q = rng.normal(size=(32, dim)).astype(np.float32)
         ids, dists = eng.search(q)
@@ -364,7 +364,7 @@ def test_pq_engine_fused_dispatch_budget(tmp_path):
         disk_path=str(tmp_path / "t"), disk_capacity=4 * n,
         host_window=n // 4, search=SearchParams(k=8, pool=32, max_iters=48),
         seed=0, pq_enabled=True, pq_m=4, pq_bits=6, coalesce=False,
-        wal_enabled=False, device="cpu"))
+        device="cpu"))
     try:
         q = rng.normal(size=(8, 16)).astype(np.float32)
         for _ in range(4):
@@ -381,26 +381,33 @@ def test_pq_engine_fused_dispatch_budget(tmp_path):
 
 
 def test_tiered_engine_refuses_what_is_not_ported(tmp_path):
+    """What stays unported (the partitioned build, ROADMAP A.2) raises;
+    so do a manifest of an unknown format, the PQ lane without the
+    three-tier mode, an unknown cache dtype and an attribute store of
+    the wrong capacity."""
+    from repro_torch.core.filters import AttributeSchema
+    from repro_torch.core.wal import WALCorruptionError
     vecs = np.random.default_rng(0).normal(size=(64, 8)).astype(np.float32)
     base = dict(degree=8, cache_slots=16, capacity=128, disk_capacity=128,
                 device="cpu")
-    with pytest.raises(NotImplementedError, match="A.8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         TE.SVFusionEngine(vecs, TE.EngineConfig(
-            disk_path=str(tmp_path / "w"), **base))          # WAL default on
+            disk_path=str(tmp_path / "w"), build_partitions=2, **base))
     (tmp_path / "m").mkdir()
     (tmp_path / "m" / "manifest.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="A.8"):
+    with pytest.raises(WALCorruptionError, match="format"):
         TE.SVFusionEngine(vecs, TE.EngineConfig(
-            disk_path=str(tmp_path / "m"), wal_enabled=False, **base))
+            disk_path=str(tmp_path / "m"), **base))
     with pytest.raises(ValueError, match="three-tier"):
         TE.SVFusionEngine(vecs, TE.EngineConfig(pq_enabled=True, **base))
     with pytest.raises(ValueError, match="cache_dtype"):
         TE.SVFusionEngine(vecs, TE.EngineConfig(
-            disk_path=str(tmp_path / "d"), wal_enabled=False,
-            cache_dtype="fp64", **base))
-    with pytest.raises(NotImplementedError, match="A.9"):
+            disk_path=str(tmp_path / "d"), cache_dtype="fp64", **base))
+    with pytest.raises(ValueError, match="spans"):
         TT.TieredBackend(TT.TieredStore(TT.DiskTier(
-            str(tmp_path / "a"), 8, 2, 2), 4), 0).attach_attrs(None)
+            str(tmp_path / "a"), 8, 2, 2), 4), 0).attach_attrs(
+                TT.AttributeStore(AttributeSchema(tag_fields=("t",)), 9,
+                                  device="cpu"))
 
 
 def test_converted_tiered_state_searches_alike(index):

@@ -170,7 +170,8 @@ def test_reverse_edge_rows_host_conflicts_keep_the_last_write():
 
 
 def test_insert_tiered_refuses_what_is_not_ported(pair):
-    with pytest.raises(NotImplementedError, match="A.9"):
+    """Attributes without an attribute store, and a full disk tier."""
+    with pytest.raises(ValueError, match="attribute store"):
         TU.insert_tiered(pair["tbe"], pair["thp"], ints(pair["rng"], 2), SP,
                          0, attributes={"tag": [1, 2]}, device="cpu")
     with pytest.raises(ValueError, match="full"):
@@ -185,7 +186,7 @@ def test_insert_tiered_refuses_what_is_not_ported(pair):
 def _engine_kw(tmp, tag, **kw):
     return dict(degree=16, cache_slots=128, capacity=4096,
                 disk_path=str(tmp / tag), disk_capacity=4096,
-                host_window=375, seed=3, wal_enabled=False, coalesce=False,
+                host_window=375, seed=3, coalesce=False,
                 prefetch=False, spec_rank="flam", consolidate_threshold=2.0,
                 **kw)
 
@@ -249,9 +250,9 @@ def test_three_tier_pq_engine_installs_inserted_rows(tmp_path):
         found, _ = eng.search(newv)
         assert not np.isin(ids[:10], found).any()
         assert eng.stats()["pq_encoded_incremental"] == 40
-        with pytest.raises(NotImplementedError, match="A.8"):
-            eng.checkpoint()
-        with pytest.raises(NotImplementedError, match="A.9"):
+        assert eng.checkpoint() == 1
+        assert eng.stats()["wal_records"] == 0     # a fresh segment
+        with pytest.raises(ValueError, match="cfg.attributes"):
             eng.insert(newv, attributes={"t": np.zeros(40)})
     finally:
         eng.close()
@@ -272,7 +273,7 @@ def dataset():
 def make_engine(path, dataset, **kw):
     return TE.SVFusionEngine(dataset, TE.EngineConfig(
         degree=16, cache_slots=256, capacity=8192, disk_path=str(path),
-        disk_capacity=8192, host_window=700, wal_enabled=False,
+        disk_capacity=8192, host_window=700,
         search=SearchParams(k=10, pool=64, max_iters=96), device="cpu", **kw))
 
 
