@@ -2,14 +2,16 @@
 """Drive the PyTorch port on one NVIDIA GPU: the device-mode engine and
 the three-tier engine with the PQ lane and the fused topology executor,
 their searches and their write paths (streaming inserts and deletes,
-MVCC consolidation).
+MVCC consolidation), the partitioned build, the sharded search, the
+GPU baseline and the cost model.
 
 Usage: python3 chip_smoke.py [--seed S] [--only PHASES]
 
 Phases, each printing JSON lines (any failure raises and exits non-zero;
 there is no CPU branch). ``--only`` runs a comma-separated subset of
-kernels, parity, write_parity, durability, main, tiered, consolidation;
-the kernels line is printed only when all run.
+kernels, parity, write_parity, durability, main, tiered, consolidation,
+partitioned, distributed, baselines, calibrate; the kernels line is
+printed only when all run.
 
 1. device        card name and power limit (nvidia-smi), torch and CUDA.
 2. build         nvcc builds every kernel (l2_gather, pq_adc, row_gather,
@@ -69,6 +71,25 @@ the kernels line is printed only when all run.
                  stream step in its window, on a 131,072-row index of the
                  same configuration (the host pass is a Python loop over
                  256-row chunks, ~0.2 s each: about 14 minutes at 1M).
+10. partitioned the partitioned build (4 partitions, 256 cross samples):
+                 on a 20,000 x 96 integer index, CPU (plain l2_gather)
+                 and card (kernel) give identical graphs, caches and
+                 answers in both engine modes; then a device-mode engine
+                 built in 4 partitions on the main phase's vectors answers
+                 its requests (recall@10 beside the one-partition
+                 engine's), with the build's seconds by pass, peak device
+                 memory and l2_gather launches, and l2_gather timed at the
+                 merge's shape.
+11. distributed  the sharded search: an NCCL group of one rank over the
+                 whole 262,144-row index equals ``frontier_search``; a
+                 gloo group of two processes on this card (NCCL takes one
+                 rank per GPU), each owning half of a 2 x 131,072 index,
+                 equals one process's two shard searches merged alike.
+12. baselines    ``CagraStatic`` on the card: 65,536 rows, then 2 steps
+                 of 2,048 inserts (a full rebuild each) and 2,048
+                 deletes, each followed by a 1,024-query search.
+13. calibrate    ``calibrate.measure(dim=96)`` on the card, beside the
+                 main and tiered engines' ``modeled_us_per_access``.
 
 Then the kernels line, the card line, and the final status line.
 """
@@ -92,7 +113,8 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 FP32_FLOPS = 67e12            # H100 SXM fp32 outside the tensor cores
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 PHASES = ("kernels", "parity", "write_parity", "durability", "main",
-          "tiered", "consolidation")
+          "tiered", "consolidation", "partitioned", "distributed",
+          "baselines", "calibrate")
 
 
 def emit(phase, **kw):
@@ -1474,14 +1496,17 @@ def tiered_consolidation_window(eng, state, draw, dev, rows):
 
 
 def phase_main(gen, dev, seed, n=262_144, d=96, sizes=(1024,) * 8
-               + (10_240,), recall_q=1024, min_recall=0.5, write=True):
+               + (10_240,), recall_q=1024, min_recall=0.5, write=True,
+               keep=None):
     """The device-mode engine at Deep1B's published width
     (configs/svfusion_deep1b.py: D=96, degree 32, pool 64, k=10, 64 hops,
     131,072 cache slots), N cut to 262,144 so that this build and the
     tiered path's 1M build fit the run's time, requests through the
     coalescer. Returns the l2_gather launches made by the requests (not
     by the profiled batches after them). Then, with ``write``, the
-    sliding-window write stream (``phase_write_stream``)."""
+    sliding-window write stream (``phase_write_stream``). ``keep``, when
+    a dict, receives the vectors, the requests, their recall@10 and the
+    engine's ``modeled_us_per_access`` for the later phases."""
     import torch
     from repro_torch.core.engine import EngineConfig, SVFusionEngine
     from repro_torch.core.search import brute_force_topk, recall_at_k
@@ -1508,6 +1533,7 @@ def phase_main(gen, dev, seed, n=262_144, d=96, sizes=(1024,) * 8
         torch.cuda.synchronize()
         K.launches = 0                     # count the main path alone
         launched = 0
+        recalls = []
         for i, q in enumerate(queries):
             s0, l0 = eng.host_syncs, K.launches
             q_host = q.cpu().numpy()
@@ -1525,6 +1551,7 @@ def phase_main(gen, dev, seed, n=262_144, d=96, sizes=(1024,) * 8
                                      "or ids outside the index")
             rec = float(recall_at_k(torch.as_tensor(ids[:recall_q],
                                                     device=dev), truth[i]))
+            recalls.append(rec)
             emit("request", i=i, queries=len(q_host), latency_s=dt,
                  qps=len(q_host) / dt, host_syncs=eng.host_syncs - s0,
                  l2_gather_launches=lq, recall_at_10=rec)
@@ -1535,6 +1562,9 @@ def phase_main(gen, dev, seed, n=262_144, d=96, sizes=(1024,) * 8
                                      f"{min_recall}")
         st = eng.stats()
         emit("engine_stats", **{k: v for k, v in st.items() if k != "slo"})
+        if keep is not None:
+            keep.update(vecs=vecs, queries=queries, recall=recalls,
+                        modeled_us_per_access=st["modeled_us_per_access"])
         phase_profile(eng, queries[:3])
         phase_knn_chunk(vecs)
         if write:
@@ -1674,7 +1704,7 @@ def filtered_requests(eng, vecs, queries, specs, dev, k=10):
 def phase_tiered_main(gen, dev, seed, n=1_000_000, d=96, sizes=(1024,) * 8
                       + (10_240,), recall_q=1024, min_recall=0.5,
                       write_steps=4, write_rows=2048, filtered_q=3,
-                      min_graph_filter_recall=0.2):
+                      min_graph_filter_recall=0.2, keep=None):
     """The three-tier engine at Deep1B's published width
     (configs/svfusion_deep1b.py: D=96, degree 32, pool 64, k=10, 64 hops
     at beam 16, 131,072 exact-cache slots in bf16) with the PQ lane (m=16,
@@ -1692,7 +1722,8 @@ def phase_tiered_main(gen, dev, seed, n=1_000_000, d=96, sizes=(1024,) * 8
     final publish), a reopen with ``init_vectors=None`` and the same
     unfiltered and filtered ``search_tiered`` calls, which must return
     identical ids and distances. The consolidation runs on a smaller
-    index (``phase_tiered_consolidation``)."""
+    index (``phase_tiered_consolidation``). ``keep``, when a dict,
+    receives the engine's ``modeled_us_per_access``."""
     import os
 
     import torch
@@ -1769,6 +1800,8 @@ def phase_tiered_main(gen, dev, seed, n=1_000_000, d=96, sizes=(1024,) * 8
             st = eng.stats()
             emit("tiered_stats", **{k: v for k, v in st.items()
                                     if k != "slo"})
+            if keep is not None:
+                keep["modeled_us_per_access"] = st["modeled_us_per_access"]
             phase_profile(eng, queries[:3], phase="tiered_profile")
             phase_tiered_stages(eng, queries[:3])
             # the filtered path, counted alone
@@ -1892,6 +1925,444 @@ def phase_tiered_consolidation(gen, dev, seed, n=131_072, d=96, steps=2,
             eng.close()
 
 
+# ---------------------------------------------------------------------------
+# The rest of core/: the partitioned build, the sharded search, the
+# baselines and the cost model
+# ---------------------------------------------------------------------------
+
+def _same(a, b, what):
+    """Raise unless tensors ``a`` and ``b`` (any devices) are equal."""
+    import torch
+    if not torch.equal(a.cpu(), b.cpu()):
+        raise AssertionError(f"{what} differ")
+
+
+def _partitioned_config(dev, **kw):
+    """The main phase's configuration, built in 4 partitions with 256
+    cross samples unless ``kw`` says otherwise."""
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.core.types import SearchParams
+    return EngineConfig(**{
+        "degree": 32, "build_partitions": 4, "build_cross_samples": 256,
+        "search": SearchParams(k=10, pool=64, max_iters=64, beam=16),
+        "device": str(dev), **kw})
+
+
+def phase_partitioned_parity(gen, dev, n=20_000, d=96, b=256):
+    """The partitioned build (4 partitions, 256 cross samples) of an
+    integer-valued index on the CPU (plain l2_gather) and on the card
+    (kernel), in both engine modes: the graph, the in-degrees, the warm
+    cache's ids and the answers must be identical."""
+    import torch
+    from repro_torch.core.engine import SVFusionEngine
+    from repro_torch.core.search import frontier_search
+    from repro_torch.kernels.l2_gather import kernel as K
+    vecs = int_vectors(gen, n, d, dev).cpu().numpy()
+    q = int_vectors(gen, b, d, dev)
+    entries = torch.randint(0, n, (b, 64), generator=gen, device=dev,
+                            dtype=torch.int32)
+    out = {}
+    engines = {}
+    for tag, where in (("cpu", "cpu"), ("card", dev)):
+        l0 = K.launches
+        t0 = time.perf_counter()
+        engines[tag] = SVFusionEngine(vecs, _partitioned_config(
+            where, cache_slots=2048, capacity=n, coalesce=False))
+        out[f"build_s_{tag}"] = time.perf_counter() - t0
+        if tag == "card":
+            out["card_build_launches"] = K.launches - l0
+    cpu, card = engines["cpu"], engines["card"]
+    try:
+        for part, fields in (("graph", ("nbrs", "e_in")),
+                             ("cache", ("slot_hid", "h2d"))):
+            for f in fields:
+                _same(getattr(getattr(card.state, part), f),
+                      getattr(getattr(cpu.state, part), f),
+                      f"partitioned device mode, card and CPU: {part}.{f}")
+        sp = card.cfg.search
+        a = frontier_search(card.state, q, entries, sp)
+        b_ = frontier_search(cpu.state, q.cpu(), entries.cpu(), sp)
+        for f in ("ids", "dists", "acc_ids"):
+            _same(getattr(a, f), getattr(b_, f),
+                  f"partitioned device mode, card and CPU: {f}")
+    finally:
+        cpu.close()
+        card.close()
+    if out["card_build_launches"] == 0:
+        raise AssertionError("the card's partitioned build launched no "
+                             "l2_gather")
+    qn = q.cpu().numpy()
+    with tempfile.TemporaryDirectory() as td:
+        res = {}
+        for tag, where in (("cpu", "cpu"), ("card", dev)):
+            eng = SVFusionEngine(vecs, _partitioned_config(
+                where, cache_slots=2048, capacity=n,
+                disk_path=f"{td}/{tag}", disk_capacity=n, coalesce=False,
+                prefetch=False, spec_rank="flam", cache_dtype="fp32"))
+            try:
+                be = eng._backend
+                res[tag] = (np.array(be.store.disk.nbr[:n]),
+                            be.e_in[:n].copy(), *eng.search(qn))
+            finally:
+                eng.close()
+        for name, x, y in zip(("nbrs", "e_in", "ids", "dists"), res["cpu"],
+                              res["card"]):
+            if not np.array_equal(x, y):
+                raise AssertionError(f"three-tier partitioned build: card "
+                                     f"and CPU differ in {name}")
+    emit("partitioned_parity", n=n, d=d, queries=b, partitions=4,
+         cross_samples=256, **out,
+         identical=["device mode: nbrs, e_in, cache slot_hid and h2d, "
+                    "ids, dists, acc_ids",
+                    "three-tier: disk nbrs, e_in, ids, dists"])
+
+
+def l2_gather_build_shape(vecs, nbrs, gen, rows=2048, cross=256):
+    """l2_gather at the partitioned merge's shape: ids [rows, 64] (a
+    row's 32 graph neighbours and its 32 nearest of 256 sampled global
+    columns, as the merge's [local | cross] candidates), queries the
+    rows themselves, the whole table. Kernel against its plain version,
+    with times and the bound."""
+    import torch
+    from repro_torch.core.build import pairwise_l2
+    from repro_torch.core.topk import smallest_k
+    from repro_torch.kernels.l2_gather import kernel as K
+    from repro_torch.kernels.l2_gather.ref import l2_gather_ref
+    n, D = vecs.shape
+    s = n // 2
+    samp = torch.randperm(n, generator=gen, device=vecs.device)[:cross]
+    ci = smallest_k(pairwise_l2(vecs[s:s + rows], vecs[samp]), 32)[1]
+    ids = torch.cat([nbrs[s:s + rows], samp[ci].to(torch.int32)], dim=1)
+    q = vecs[s:s + rows]
+    out = K.l2_gather(vecs, ids, q)
+    ref = l2_gather_ref(vecs, ids, q)
+    torch.cuda.synchronize()
+    ok = ids >= 0
+    err = (out[ok] - ref[ok]).abs()
+    tol = TOL["float32"]
+    if not bool((err <= tol * ref[ok].abs() + tol * D).all()) or \
+            not torch.isinf(out[~ok]).all():
+        raise AssertionError(f"l2_gather at the build shape: max abs err "
+                             f"{err.max().item()}")
+    bound_ms, bound_by = l2_gather_bound_ms(vecs, ids)
+    row = dict(shape=[n, D, rows, ids.shape[1]], dtype="torch.float32",
+               max_abs_err=err.max().item(), tol=tol,
+               ms=cuda_ms(lambda: K.l2_gather(vecs, ids, q), 30),
+               plain_ms=cuda_ms(lambda: l2_gather_ref(vecs, ids, q), 10),
+               bound_ms=bound_ms, bound_by=bound_by)
+    emit("kernel", kernel="l2_gather", table="build", **row)
+    return row
+
+
+def phase_partitioned(gen, dev, seed, main=None, n=262_144, d=96,
+                      recall_q=1024, min_recall=0.3):
+    """A device-mode engine with ``build_partitions=4`` (256 cross samples,
+    the reference's Fig. 11 setting in benchmarks/bench_disk.py) on the
+    main phase's vectors, capacity and requests (``main``: what
+    ``phase_main`` kept; drawn and built here at one partition when the
+    main phase did not run). Prints the build's seconds by pass, its peak
+    device memory and l2_gather launches, each request's recall@10 beside
+    the one-partition engine's, and l2_gather at the merge's shape.
+    Returns (l2_gather launches of the build, the build-shape row, the
+    engine's state)."""
+    import torch
+    from repro_torch.core.engine import SVFusionEngine
+    from repro_torch.core.search import brute_force_topk, recall_at_k
+    from repro_torch.kernels.l2_gather import kernel as K
+    phase_partitioned_parity(gen, dev)
+    if main is None:
+        draw = synthetic_descriptors(gen, n, d, dev)
+        vecs = draw(n)
+        queries = [draw(b) for b in (1024,) * 8 + (10_240,)]
+        single = SVFusionEngine(vecs, _partitioned_config(
+            dev, cache_slots=131_072, capacity=1 << 20, seed=seed,
+            build_partitions=1))
+        try:
+            truth = [brute_force_topk(single.state.graph, q[:recall_q],
+                                      10)[0] for q in queries]
+            main = dict(vecs=vecs, queries=queries, recall=[float(
+                recall_at_k(torch.as_tensor(single.search(
+                    q.cpu().numpy())[0][:recall_q], device=dev), t))
+                for q, t in zip(queries, truth)])
+        finally:
+            single.close()
+    vecs, queries = main["vecs"], main["queries"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    K.launches = 0                     # count the partitioned build alone
+    t0 = time.perf_counter()
+    eng = SVFusionEngine(vecs, _partitioned_config(
+        dev, cache_slots=131_072, capacity=1 << 20, seed=seed))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_launches = K.launches
+    # the share of the graph's edges that join two partitions
+    nb = eng.state.graph.nbrs[:n]
+    cuts = torch.as_tensor(np.linspace(0, n, 5).astype(int)[1:-1],
+                           device=dev)
+    part = torch.bucketize(torch.arange(n, device=dev), cuts, right=True)
+    cross = (torch.bucketize(nb.clamp(min=0), cuts, right=True)
+             != part[:, None]) & (nb >= 0)
+    emit("build_partitioned", n=n, d=d, partitions=4, cross_samples=256,
+         cross_partition_edge_share=float(cross.sum() / (nb >= 0).sum()),
+         build_s=build_s, **eng.build_timings,
+         peak_device_bytes=torch.cuda.max_memory_allocated(),
+         peak_above_start_bytes=torch.cuda.max_memory_allocated() - base,
+         index_bytes=index_bytes(eng.state),
+         l2_gather_launches=build_launches)
+    if build_launches == 0:
+        raise AssertionError("the partitioned build launched no l2_gather")
+    try:
+        for i, q in enumerate(queries):
+            truth = brute_force_topk(eng.state.graph, q[:recall_q], 10)[0]
+            t = time.perf_counter()
+            ids, dists = eng.search(q.cpu().numpy())
+            dt = time.perf_counter() - t
+            rec = float(recall_at_k(torch.as_tensor(ids[:recall_q],
+                                                    device=dev), truth))
+            emit("partitioned_request", i=i, queries=len(q), latency_s=dt,
+                 recall_at_10=rec,
+                 single_partition_recall_at_10=main["recall"][i])
+            if not (np.isfinite(dists).all() and (ids >= 0).all()
+                    and (ids < n).all()) or rec < min_recall:
+                raise AssertionError(f"partitioned request {i}: recall@10 "
+                                     f"{rec} (floor {min_recall}) or ids "
+                                     "outside the index")
+        row = l2_gather_build_shape(vecs, eng.state.graph.nbrs, gen)
+    finally:
+        eng.close()
+    return build_launches, row, eng.state
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def index_arrays(state):
+    """The sharded search's arrays (``distributed.INDEX_FIELDS``) of one
+    whole index: its first n rows and its cache."""
+    g, c = state.graph, state.cache
+    n = int(g.n)
+    return {"vectors": g.vectors[:n], "nbrs": g.nbrs[:n],
+            "alive": g.alive[:n], "e_in": g.e_in[:n],
+            "cache_vectors": c.vectors, "slot_hid": c.slot_hid,
+            "h2d": c.h2d[:n], "f_recent": c.f_recent[:n]}
+
+
+def dist_child(args):
+    """The gloo group's rank (``--dist-child DIR --dist-rank R``): load
+    its shard and the queries from DIR onto the card, join the group
+    through a file rendezvous in DIR, run the sharded search with its
+    own entry draw, and write the merged answer and its l2_gather
+    launches to DIR."""
+    import torch
+    dist_rank(Path(args.dist_child), args.dist_rank, args.seed,
+              torch.device("cuda", 0))
+    sys.exit(0)
+
+
+def dist_rank(root, rank, seed, dev):
+    """The body of ``dist_child`` on ``dev``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import distributed as SD
+    from repro_torch.core.types import SearchParams
+    from repro_torch.kernels.l2_gather import kernel as K
+    z = np.load(root / f"shard{rank}.npz")
+    idx = {f: torch.as_tensor(z[f], device=dev) for f in SD.INDEX_FIELDS}
+    q = torch.as_tensor(np.load(root / "queries.npy"), device=dev)
+    dist.init_process_group("gloo", init_method=f"file://{root}/rdzv",
+                            world_size=2, rank=rank)
+    try:
+        mesh = SD.RankMesh((2,), ("data",))
+        step = SD.make_distributed_search(
+            mesh, SearchParams(k=10, pool=64, max_iters=64, beam=16),
+            data_axes=("data",), query_axis=None)
+        K.launches = 0
+        t0 = time.perf_counter()
+        ids, d = step(idx, q, seed=seed)
+        torch.cuda.synchronize()
+        np.savez(root / f"rank{rank}.npz", ids=ids.cpu().numpy(),
+                 dists=d.cpu().numpy(), launches=K.launches,
+                 seconds=time.perf_counter() - t0)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_distributed(gen, dev, seed, main=None, state=None, n=262_144,
+                      d=96, b=1024, child_timeout=600):
+    """The sharded search (``core/distributed.py``):
+    1. an NCCL group of one rank over a whole 262,144-row index (the
+       partitioned phase's, else a fresh build): equal to
+       ``frontier_search`` with the same entries;
+    2. a gloo group of two processes on this card, each rank owning one
+       half of a 2 x 131,072 x 96 index (a graph built per half) with
+       replicated queries: both ranks' answers equal one process's two
+       shard searches merged by the same function; recall@10 against
+       brute force over the union. NCCL takes one rank per GPU, so the
+       two-rank group uses gloo (the results cross on CPU copies)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import distributed as SD
+    from repro_torch.core.build import build_index
+    from repro_torch.core.search import (brute_force_topk, frontier_search,
+                                         recall_at_k)
+    from repro_torch.core.types import GraphState, SearchParams
+    from repro_torch.kernels.l2_gather import kernel as K
+    sp = SearchParams(k=10, pool=64, max_iters=64, beam=16)
+    draw = synthetic_descriptors(gen, n, d, dev)
+    vecs = main["vecs"] if main is not None else draw(n)
+    q = draw(b)
+    if state is None:
+        state = build_index(vecs, degree=32, cache_slots=131_072,
+                            n_max=1 << 20, device=dev)
+    # 1. NCCL, world 1
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        mesh = SD.RankMesh((1,), ("data",))
+        step = SD.make_distributed_search(mesh, sp, data_axes=("data",),
+                                          query_axis=None)
+        entries = SD.shard_entries(seed, 0, b, sp.pool, n, dev)
+        K.launches = 0                 # count the sharded step alone
+        t0 = time.perf_counter()
+        ids, dists = step(index_arrays(state), q, entries)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        launched = K.launches
+        want = frontier_search(state, q, entries, sp)
+        _same(ids, want.ids, "NCCL world 1 and frontier_search: ids")
+        _same(dists, want.dists, "NCCL world 1 and frontier_search: dists")
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    truth = brute_force_topk(state.graph, q, 10)[0]
+    emit("distributed_nccl", backend=backend, world=1, n=n, queries=b,
+         step_s=step_s, l2_gather_launches=launched,
+         recall_at_10=float(recall_at_k(ids, truth)),
+         identical_to="frontier_search on the same entries")
+    if launched == 0:
+        raise AssertionError("the NCCL step launched no l2_gather")
+    # 2. gloo, world 2, one process a shard
+    half = n // 2
+    t0 = time.perf_counter()
+    shards = [index_arrays(build_index(vecs[s * half:(s + 1) * half],
+                                       degree=32, cache_slots=65_536,
+                                       device=dev)) for s in range(2)]
+    build_s = time.perf_counter() - t0
+    merged = SD.merge_shard_results(*(torch.stack(x) for x in zip(*(
+        SD.search_shard(shards[s], q, SD.shard_entries(
+            seed, s, b, sp.pool, half, dev), sp, offset=s * half)
+        for s in range(2)))), sp.k)
+    with tempfile.TemporaryDirectory() as td:
+        for s, idx in enumerate(shards):
+            np.savez(f"{td}/shard{s}.npz",
+                     **{f: x.cpu().numpy() for f, x in idx.items()})
+        np.save(f"{td}/queries.npy", q.cpu().numpy())
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--dist-child",
+             td, "--dist-rank", str(r), "--seed", str(seed)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        try:
+            for r, p in enumerate(procs):
+                out, _ = p.communicate(timeout=child_timeout)
+                if p.returncode != 0:
+                    raise AssertionError(f"gloo rank {r} exited "
+                                         f"{p.returncode}:\n{out[-3000:]}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        group_s = time.perf_counter() - t0
+        got = [np.load(f"{td}/rank{r}.npz") for r in range(2)]
+    for r, z in enumerate(got):
+        for f, want in zip(("ids", "dists"), merged):
+            if not np.array_equal(z[f], want.cpu().numpy()):
+                raise AssertionError(f"gloo rank {r}: {f} differ from the "
+                                     "one-process merge")
+        if int(z["launches"]) == 0:
+            raise AssertionError(f"gloo rank {r} launched no l2_gather")
+    union = GraphState(vecs, None, torch.ones(n, dtype=torch.bool,
+                                              device=dev), None, None, None)
+    truth = brute_force_topk(union, q, 10)[0]
+    emit("distributed_gloo", backend="gloo", world=2, shard_rows=half,
+         shards=2, queries=b, shard_build_s=build_s, group_s=group_s,
+         step_s=[float(z["seconds"]) for z in got],
+         l2_gather_launches=[int(z["launches"]) for z in got],
+         recall_at_10=float(recall_at_k(merged[0], truth)),
+         identical_to="one process: both shard searches, same merge")
+
+
+def phase_baselines(gen, dev, n=65_536, d=96, steps=2, rows=2048,
+                    q_rows=1024, min_recall=0.5):
+    """``CagraStatic`` on the card (degree 32, rebuild every 2,048
+    buffered inserts, benchmarks/bench_streaming.py's baseline): built on
+    ``n`` rows, then ``steps`` steps of ``rows`` inserts (a full rebuild
+    each) and ``rows`` deletes of the oldest live rows, each followed by
+    a search. Recall@10 against brute force over the live rows; no
+    deleted id may come back."""
+    import torch
+    from repro_torch.core.baselines import CagraStatic
+    from repro_torch.core.search import brute_force_topk, recall_at_k
+    from repro_torch.core.types import GraphState
+    from repro_torch.kernels.l2_gather import kernel as K
+    draw = synthetic_descriptors(gen, n, d, dev)
+    idx = CagraStatic(d, degree=32, rebuild_every=rows, device=dev)
+    t0 = time.perf_counter()
+    idx.insert(draw(n).cpu().numpy())
+    rebuild_s = [time.perf_counter() - t0]
+    for i in range(steps):
+        t0 = time.perf_counter()
+        idx.insert(draw(rows).cpu().numpy())
+        rebuild_s.append(time.perf_counter() - t0)
+        live = np.setdiff1d(np.arange(len(idx.data)), list(idx.deleted))
+        idx.delete(live[:rows])
+        q = draw(q_rows)
+        l0 = K.launches
+        t0 = time.perf_counter()
+        found = idx.search(q.cpu().numpy())
+        search_s = time.perf_counter() - t0
+        alive = torch.ones(len(idx.data), dtype=torch.bool, device=dev)
+        alive[torch.as_tensor(sorted(idx.deleted), device=dev)] = False
+        truth = brute_force_topk(GraphState(
+            torch.as_tensor(idx.data, device=dev), None, alive, None, None,
+            None), q, 10)[0]
+        rec = float(recall_at_k(torch.as_tensor(found, device=dev), truth))
+        leaked = int(np.isin(found, list(idx.deleted)).sum())
+        emit("baselines", index="CagraStatic", step=i, rows=len(idx.data),
+             inserted=rows, deleted=rows, rebuilds=idx.rebuilds,
+             rebuild_s=rebuild_s, search_s=search_s,
+             l2_gather_launches=K.launches - l0, recall_at_10=rec,
+             deleted_ids_returned=leaked)
+        if leaked or rec < min_recall or K.launches == l0:
+            raise AssertionError(f"CagraStatic step {i}: recall {rec}, "
+                                 f"deleted ids returned {leaked}")
+    if idx.rebuilds != steps + 1:
+        raise AssertionError(f"CagraStatic rebuilt {idx.rebuilds} times")
+
+
+def phase_calibrate(dev, modeled):
+    """``calibrate.measure(dim=96)`` on the card: the per-vector costs of
+    the two tiers and of a pageable host-to-device copy, and theta;
+    beside them the ``modeled_us_per_access`` of the engines that ran
+    (``modeled``: engine -> value)."""
+    from repro_torch.core.calibrate import measure
+    cm = measure(dim=96, device=dev)
+    emit("calibrate", dim=96, n=4096, t_fast=cm.t_fast, t_slow=cm.t_slow,
+         t_transfer=cm.t_transfer, theta=cm.theta, batch=cm.batch,
+         modeled_us_per_access=modeled)
+    if not (cm.t_fast > 0 and cm.t_transfer > 0
+            and cm.t_slow >= 1.01 * cm.t_fast):
+        raise AssertionError(f"calibrate: {cm}")
+
+
 def main():
     import torch
     ap = argparse.ArgumentParser()
@@ -1904,12 +2375,17 @@ def main():
     ap.add_argument("--crash-child", help=argparse.SUPPRESS)
     ap.add_argument("--crash-point", help=argparse.SUPPRESS)
     ap.add_argument("--crash-op", type=int, help=argparse.SUPPRESS)
+    # the distributed phase's gloo ranks (see dist_child)
+    ap.add_argument("--dist-child", help=argparse.SUPPRESS)
+    ap.add_argument("--dist-rank", type=int, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs only on the "
                  "card")
     if args.crash_child:
         crash_child(args)
+    if args.dist_child:
+        dist_child(args)
     only = args.only.split(",")
     if set(only) - set(PHASES):
         sys.exit(f"chip_smoke: unknown phases {set(only) - set(PHASES)}")
@@ -1953,13 +2429,27 @@ def main():
         phase_write_parity_tiered(gen, dev, sp)
     if "durability" in only:
         phase_durability(gen, dev, args.seed)
+    main_kept, tiered_kept, part_state = {}, {}, None
     if "main" in only:
-        l2_launches = phase_main(gen, dev, args.seed)
+        l2_launches = phase_main(gen, dev, args.seed, keep=main_kept)
     if "tiered" in only:
         (pq_launches, row_launches), (pq_filtered, row_filtered) = \
-            phase_tiered_main(gen, dev, args.seed)
+            phase_tiered_main(gen, dev, args.seed, keep=tiered_kept)
     if "consolidation" in only:
         phase_tiered_consolidation(gen, dev, args.seed)
+    if "partitioned" in only:
+        l2_build_launches, l2_build, part_state = phase_partitioned(
+            gen, dev, args.seed, main=main_kept or None)
+    if "distributed" in only:
+        phase_distributed(gen, dev, args.seed, main=main_kept or None,
+                          state=part_state)
+    if "baselines" in only:
+        phase_baselines(gen, dev)
+    if "calibrate" in only:
+        phase_calibrate(dev, {name: kept["modeled_us_per_access"]
+                              for name, kept in (("main", main_kept),
+                                                 ("tiered", tiered_kept))
+                              if kept})
     emit("phases", ran=only, seconds=time.perf_counter() - t_run)
 
     if only == list(PHASES):
@@ -1969,7 +2459,11 @@ def main():
                 for k in ("ms", "plain_ms", "bound_ms", "call_peak_bytes")}
         kernels = [
             dict(name="l2_gather", replaces="src/repro/kernels/l2_gather/"
-                 "kernel.py:54", launches=l2_launches, row=l2),
+                 "kernel.py:54", launches=l2_launches, row=l2,
+                 extra=dict(launches_build=l2_build_launches,
+                            **{f"{k}_build": l2_build[k]
+                               for k in ("ms", "plain_ms", "bound_ms",
+                                         "max_abs_err")})),
             dict(name="pq_adc", replaces="src/repro/kernels/pq_adc/"
                  "kernel.py:74", launches=pq_launches, row=pq,
                  extra=dict(launches_filtered=pq_filtered, **scan)),

@@ -14,6 +14,8 @@ directory), ``host_placement_from_arrays`` and
 (``update.RevLog``) for the MVCC merges, and
 ``attribute_store_from_arrays`` the attribute columns of filtered search
 (the reference's ``schema.to_meta()``, ``tags`` and ``nums``).
+``shard_rows`` cuts one shard's rows out of the sharded index's global
+arrays (``core/distributed.py``).
 """
 from __future__ import annotations
 
@@ -44,6 +46,24 @@ def index_state_from_arrays(graph: dict, cache: dict, stats: dict,
 def index_state_to_arrays(state: IndexState) -> tuple[dict, dict, dict]:
     return tuple({f: x.cpu().numpy() for f, x in part._asdict().items()}
                  for part in (state.graph, state.cache, state.stats))
+
+
+def shard_rows(arrays: dict, shard: int, n_shards: int,
+               device="cuda") -> dict:
+    """One shard of the sharded index's global arrays (the fields of
+    ``distributed.shard_index_arrays``) as tensors on ``device``: block
+    ``shard`` of ``n_shards`` equal blocks along each array's first
+    dimension, which is what the reference's ``index_shardings`` gives
+    the device at that shard."""
+    out = {}
+    for f, a in arrays.items():
+        if a.shape[0] % n_shards:
+            raise ValueError(f"{f}: {a.shape[0]} rows do not split into "
+                             f"{n_shards} shards")
+        m = a.shape[0] // n_shards
+        out[f] = torch.as_tensor(np.asarray(a[shard * m:(shard + 1) * m]),
+                                 device=device)
+    return out
 
 
 def pq_codes_from_arrays(centroids, codes, capacity: int,

@@ -1,12 +1,16 @@
-"""Index construction (twin of ``repro.core.build``, single-partition
-path).
+"""Index construction (twin of ``repro.core.build``, paper §4.2).
 
 The KNN graph comes from brute-force distance GEMMs in row chunks on the
 device (exact, full fp32), then a host pass adds reverse edges with the
 reference's numpy random stream, then the cache tier is warmed with the
-highest in-degree vectors. ``build_tiered_backend`` spills the graph to
-the disk tier. ``rank_based_reorder`` prunes an insert's candidates to
-the out-degree. The partitioned build is not ported yet.
+highest in-degree vectors. With ``n_partitions > 1`` each partition gets
+its own exact KNN subgraph, and the partitions are merged within a
+bounded window: each row's candidates are its local neighbours and its
+nearest of a sampled set of global columns, scored by the ``l2_gather``
+kernel and pruned by ``rank_based_reorder``, a chunk of rows at a time.
+``build_tiered_backend`` spills the graph to the disk tier.
+``rank_based_reorder`` also prunes an insert's candidates to the
+out-degree.
 """
 from __future__ import annotations
 
@@ -20,6 +24,10 @@ from repro_torch.core.tiers import DiskTier, TieredBackend, TieredStore
 from repro_torch.core.topk import argsort, largest_k, smallest_k
 from repro_torch.core.types import (GraphState, IndexState, init_cache_state,
                                     init_graph_state, init_stats)
+from repro_torch.kernels.ops import gather_l2
+
+MERGE_CHUNK = 2048     # rows merged at once: rank_based_reorder's [rows,
+#                        C, R, C] comparison is 268 MB at C=64, R=32
 
 
 def pairwise_l2(a, b):
@@ -117,32 +125,112 @@ def _as_device_vectors(vectors, device):
     return torch.as_tensor(vectors, dtype=torch.float32, device=device)
 
 
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _merge_partition(vectors, local, cross, s, degree, chunk):
+    """The bounded-window merge of one partition's rows ``s + [0, rows)``:
+    candidates ``[local | cross]`` scored against their row, the row's own
+    id and every repeat of an id (after its first occurrence) at +inf and
+    repeats set to -1, a stable sort by distance, then
+    ``rank_based_reorder`` against the empty graph, ``chunk`` rows at a
+    time (every step is per row, so the chunk changes no id). Returns
+    [rows, degree] int32."""
+    rows = local.shape[0]
+    # every row of the reference's all -1 graph is the same -1 row
+    empty = torch.full((1, degree), -1, dtype=torch.int32,
+                       device=vectors.device)
+    out = []
+    for c0 in range(0, rows, chunk):
+        c1 = min(c0 + chunk, rows)
+        cand = torch.cat([local[c0:c1], cross[c0:c1]], dim=1)   # [b, C]
+        d = gather_l2(vectors, cand, vectors[s + c0:s + c1])
+        own = torch.arange(s + c0, s + c1, dtype=torch.int32,
+                           device=cand.device)
+        d = torch.where(cand == own[:, None], math.inf, d)
+        # dup[b, i]: some j < i holds the same id (keep first occurrence)
+        dup = (cand[:, :, None] == cand[:, None, :]).triu(1).any(1)
+        d = torch.where(dup, math.inf, d)
+        cand = torch.where(dup, -1, cand)
+        order = argsort(d)
+        out.append(rank_based_reorder(cand.gather(1, order),
+                                      d.gather(1, order), empty, degree))
+    return torch.cat(out, dim=0)
+
+
+def _partitioned_knn(vectors, degree, n_partitions, cross_samples, rng,
+                     timings):
+    """The partitioned build's pruned candidate lists [n, degree] int32
+    (reference ``build.py:114-146``): per partition an exact KNN
+    subgraph, ``cross_samples`` global columns drawn with ``rng``, and the
+    merge (``_merge_partition``). The draws come in partition order, as
+    the reference's do."""
+    n = vectors.shape[0]
+    if n_partitions > n:
+        raise ValueError(f"n_partitions={n_partitions} > n={n} leaves an "
+                         "empty partition")
+    dev = vectors.device
+    bounds = np.linspace(0, n, n_partitions + 1).astype(int)
+    knn_s = merge_s = 0.0
+    out = []
+    for p in range(n_partitions):
+        s, e = int(bounds[p]), int(bounds[p + 1])
+        t0 = time.perf_counter()
+        local = _exact_knn(vectors[s:e], min(degree, e - s - 1)) + s
+        _sync(dev)
+        t1 = time.perf_counter()
+        samp = rng.choice(n, size=min(cross_samples, n), replace=False)
+        samp = torch.as_tensor(samp, device=dev)
+        d_cross = pairwise_l2(vectors[s:e], vectors[samp])
+        ci = smallest_k(d_cross, min(degree, samp.numel()))[1]
+        cross = samp[ci].to(torch.int32)
+        del d_cross
+        out.append(_merge_partition(vectors, local, cross, s, degree,
+                                    MERGE_CHUNK))
+        _sync(dev)
+        knn_s += t1 - t0
+        merge_s += time.perf_counter() - t1
+    timings.update(knn_s=knn_s, merge_s=merge_s)
+    return torch.cat(out, dim=0)
+
+
 def build_graph(vectors, degree, n_max=None, *, n_partitions=1,
                 cross_samples=128, seed=0, reverse_edges=True, device=None,
                 timings=None) -> GraphState:
     """Build a fixed-out-degree KNN graph. Returns GraphState on
-    ``device``. ``timings``, when a dict, receives the seconds of the
-    device KNN pass (``knn_s``) and of the host reverse-edge pass
+    ``device``.
+
+    n_partitions > 1 takes the partitioned build and merge (bounded
+    memory window, ``MERGE_CHUNK`` rows at a time); 1 = single-partition
+    exact build. ``timings``, when a dict, receives the seconds of the
+    device KNN pass (``knn_s``), of the partitions' merge (``merge_s``,
+    0 for one partition) and of the host reverse-edge pass
     (``reverse_edges_s``)."""
-    if n_partitions > 1:
-        raise NotImplementedError(
-            "partitioned build (n_partitions > 1) is not ported yet: "
-            "ROADMAP queue A")
     vectors = _as_device_vectors(vectors, device)
     n, dim = vectors.shape
     n_max = n_max or n
     rng = np.random.default_rng(seed)
+    times = {"merge_s": 0.0}
 
     t0 = time.perf_counter()
-    knn = _exact_knn(vectors, degree).cpu().numpy()
+    if n_partitions <= 1:
+        knn = _exact_knn(vectors, degree)
+    else:
+        knn = _partitioned_knn(vectors, degree, n_partitions, cross_samples,
+                               rng, times)
+    knn = knn.cpu().numpy()
     t1 = time.perf_counter()
     nbrs = np.full((n_max, degree), -1, np.int32)
     nbrs[:n, :knn.shape[1]] = knn
     if reverse_edges:
         nbrs = _add_reverse_edges(nbrs, n, rng)
     t2 = time.perf_counter()
+    times.setdefault("knn_s", t1 - t0)
+    times["reverse_edges_s"] = t2 - t1
     if timings is not None:
-        timings.update(knn_s=t1 - t0, reverse_edges_s=t2 - t1)
+        timings.update(times)
 
     g = init_graph_state(n_max, dim, degree, device=vectors.device)
     g.vectors[:n] = vectors

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import cache as Cache
+from repro_torch.core import calibrate
 from repro_torch.core import mvcc, quant, slo, update
 from repro_torch.core import wal as walmod
 from repro_torch.core.build import (_exact_knn, build_index,
@@ -450,15 +451,19 @@ class SVFusionEngine:
         self._spec_rank = cfg.spec_rank        # resolved by the tiered probe
         self._spec_probe_us = None
         self.build_timings: dict = {}
+        self._cost_model = None                # calibrate.CostModel, lazily
         if cfg.disk_path:
             self._init_tiered(init_vectors, cfg)
         else:
             if init_vectors is None:
                 raise ValueError("device mode has no durable state to "
                                  "recover: init_vectors is required")
+            # the reference's device mode drops the partition knobs and
+            # always builds one partition (ROADMAP C); the port honours them
             self._state = build_index(
                 init_vectors, degree=cfg.degree, cache_slots=cfg.cache_slots,
-                n_max=cfg.capacity, device=self.device,
+                n_max=cfg.capacity, n_partitions=cfg.build_partitions,
+                cross_samples=cfg.build_cross_samples, device=self.device,
                 timings=self.build_timings)
         self._stale_state = self._state
         self._ops_since_refresh = 0
@@ -1109,19 +1114,23 @@ class SVFusionEngine:
 
     def stats(self) -> dict:
         """Placement counters, miss rate, index size, the tiered mode's
-        tier, executor, speculation, topology and byte counters, and
-        coalescer/SLO counters: the reference's keys without
-        ``modeled_us_per_access``, whose cost model was taken for a TPU
-        (ROADMAP queue A.6)."""
+        tier, executor, speculation, topology and byte counters,
+        coalescer/SLO counters, and ``modeled_us_per_access``: the
+        reference's formula over the observed hits, capacity-tier
+        computes and transfers, with the per-vector costs that
+        ``calibrate.measure`` takes on this engine's device at the first
+        call (the reference takes a TPU v5e's constants)."""
         st = self.state
         s = st.stats
         d = {k: int(v) for k, v in s._asdict().items()}
         d["miss_rate"] = Cache.miss_rate(s)
         if self._backend is not None:
             d.update(self._tiered_stats())
+            dim = self._backend.dim
         else:
             d["n"] = int(st.graph.n)
             d["alive"] = int(st.graph.alive.sum())
+            dim = st.graph.vectors.shape[1]
         d["consolidations"] = self._consolidations
         if self._coalescer is not None:
             c = self._coalescer
@@ -1132,6 +1141,13 @@ class SVFusionEngine:
             d["coalesce_overshoot_avoided"] = c.tier.overshoot_avoided
             d["degraded_dispatches"] = c.degraded_dispatches
             d["slo"] = c.tier.stats()
+        if self._cost_model is None:   # two first calls may both measure
+            self._cost_model = calibrate.measure(dim, device=self.device)
+        cm = self._cost_model
+        acc = max(d["accesses"], 1)
+        modeled = (d["hits"] * cm.t_fast + d["cpu_computed"] * cm.t_slow
+                   + d["transfers"] * cm.t_transfer)
+        d["modeled_us_per_access"] = modeled / acc * 1e6
         return d
 
     def _tiered_stats(self) -> dict:

@@ -86,10 +86,16 @@ def test_build_index_warm_cache_matches():
 
 
 def test_build_timings_and_unported_partitioned_path():
+    """Both paths report their timings; the partitioned path, once
+    unported, now builds the reference's graph
+    (``test_torch_build_partitioned.py`` holds it case by case)."""
     v = ints(7, 120, 4)
     timings = {}
     g = TB.build_graph(v, 6, device="cpu", timings=timings)
-    assert set(timings) == {"knn_s", "reverse_edges_s"}
+    assert set(timings) == {"knn_s", "merge_s", "reverse_edges_s"}
+    assert timings["merge_s"] == 0.0
     assert g.vectors.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="partitioned"):
-        TB.build_graph(v, 6, n_partitions=4, device="cpu")
+    timings = {}
+    g = TB.build_graph(v, 6, n_partitions=4, device="cpu", timings=timings)
+    assert set(timings) == {"knn_s", "merge_s", "reverse_edges_s"}
+    eq(g.nbrs, JB.build_graph(v, 6, n_partitions=4).nbrs)

@@ -159,3 +159,53 @@ def test_evicting_host_id_zero_keeps_the_map_bijective():
     assert bijective(p_slot, p_h2d)
     mask = np.arange(N) != 0
     np.testing.assert_array_equal(p_h2d[mask], j_h2d[mask])
+
+
+def test_batched_clock_matches_the_sequential_clock():
+    """The reference's clock test (``tests/test_core.py``) on its own
+    inputs, held against the port: the sequential clock of Algorithm 2
+    (the port's ``clock_reference``) and the port's batched clock in
+    ``apply_wavp`` admit a high-value newcomer into the same slot, the
+    unreferenced resident of least F_λ, and leave the same occupants."""
+    from repro_torch.core.clock_reference import SequentialClock
+    rng = np.random.default_rng(0)
+    n_slots, n_ids = 8, 64
+    f_lam = rng.random(n_ids)
+    residents = rng.choice(n_ids, n_slots, replace=False)
+    protected = [0, 3]
+    incoming = int(np.argmax(f_lam))
+
+    seq = SequentialClock(n_slots)
+    for s, rid in enumerate(residents):
+        seq.occupant[s] = rid
+    for s in protected:
+        seq.access(s)
+    slot = seq.admit(incoming, f_lam)
+    assert slot not in protected
+    unref = [s for s in range(n_slots) if s not in protected and s != slot]
+    assert f_lam[residents[slot]] <= min(f_lam[residents[s]] for s in unref)
+
+    # the same cache for the batched pass: LFU scores are f_recent, and
+    # the newcomer's one missed access adds 1 to its own
+    ref = np.zeros(n_slots, np.int8)
+    ref[protected] = 1
+    h2d = np.full(n_ids, -1, np.int32)
+    h2d[residents] = np.arange(n_slots)
+    graph = dict(vectors=np.zeros((n_ids, D), np.float32),
+                 nbrs=np.full((n_ids, 4), -1, np.int32),
+                 alive=np.ones(n_ids, bool), e_in=np.zeros(n_ids, np.int32),
+                 version=np.zeros(n_ids, np.int32), n=np.int32(n_ids))
+    cache = dict(vectors=np.zeros((n_slots, D), np.float32),
+                 slot_hid=residents.astype(np.int32), h2d=h2d, ref=ref,
+                 slot_ver=np.zeros(n_slots, np.int32),
+                 f_recent=f_lam.astype(np.float32), theta=np.float32(1.0),
+                 alpha=np.float32(1.0), beta=np.float32(1.0))
+    stats = {f: np.int32(0) for f in jax_init_stats()._fields}
+    st = index_state_from_arrays(graph, cache, stats, device="cpu")
+    out = TC.apply_wavp(st, torch.tensor([[incoming]], dtype=torch.int32),
+                        torch.zeros((1, 1), dtype=torch.bool),
+                        SearchParams(policy="lfu"))
+    np.testing.assert_array_equal(out.cache.slot_hid.numpy(), seq.occupant)
+    assert int(out.cache.h2d[incoming]) == slot
+    assert int(out.cache.h2d[residents[slot]]) == -1
+    assert int(out.cache.ref[slot]) == seq.ref[slot] == 1

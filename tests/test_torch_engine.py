@@ -1,12 +1,15 @@
 """The port's device-mode engine on the CPU: search through the coalescer
 and directly, recall, the entry draw, stats keys against the reference,
-what device mode refuses and the part that is not ported yet (the write
-path is held in ``test_torch_update.py``)."""
+what device mode refuses and the partitioned build (the write path is
+held in ``test_torch_update.py``)."""
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core import build as JB
 from repro.core import engine as JE
+from repro.core.search import _frontier_search as jax_frontier_search
 from repro.core.types import SearchParams as JaxSearchParams
 from repro_torch.core import engine as TE
 from repro_torch.core.search import (brute_force_topk, frontier_search,
@@ -91,7 +94,7 @@ def test_stats_keys_match_the_reference_device_mode(data, engine):
         degree=8, cache_slots=64, capacity=512,
         search=JaxSearchParams(k=10, pool=32, max_iters=32)))
     try:
-        want = set(ref.stats()) - {"modeled_us_per_access"}
+        want = set(ref.stats())
     finally:
         ref.close()
     assert set(engine.stats()) == want
@@ -112,13 +115,31 @@ def test_config_keeps_every_reference_field():
 
 
 def test_unported_parts_raise(data, engine, tmp_path):
-    """The partitioned build (ROADMAP A.2) raises; durability and filters
-    keep the reference's device-mode contract: no log to checkpoint, no
-    attribute store."""
+    """The partitioned build, which raised until it was ported, builds
+    the reference's partitioned index and answers as the reference does
+    on it; durability and filters keep the reference's device-mode
+    contract: no log to checkpoint, no attribute store."""
     vecs, _ = data
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TE.SVFusionEngine(vecs, cfg(disk_path=str(tmp_path),
-                                    build_partitions=2))
+    iv = np.random.default_rng(1).integers(-6, 7, (400, D)) \
+        .astype(np.float32)
+    part = TE.SVFusionEngine(iv, cfg(build_partitions=2,
+                                     build_cross_samples=64))
+    try:
+        want = JB.build_index(iv, degree=R, cache_slots=384, n_max=8192,
+                              n_partitions=2, cross_samples=64)
+        np.testing.assert_array_equal(part.state.graph.nbrs.numpy(),
+                                      np.asarray(want.graph.nbrs))
+        q = iv[:16] + 1
+        entries = np.random.default_rng(2).integers(0, 400, (16, SP.pool)) \
+            .astype(np.int32)
+        a = jax_frontier_search(want.graph, want.cache, jnp.asarray(q),
+                                jnp.asarray(entries), JaxSearchParams(*SP))
+        b = frontier_search(part.state, torch.from_numpy(q),
+                            torch.from_numpy(entries), SP)
+        np.testing.assert_array_equal(b.ids.numpy(), np.asarray(a.ids))
+        np.testing.assert_array_equal(b.dists.numpy(), np.asarray(a.dists))
+    finally:
+        part.close()
     with pytest.raises(ValueError, match="three-tier"):
         TE.SVFusionEngine(vecs, cfg(attributes=object()))
     assert engine.checkpoint() is None

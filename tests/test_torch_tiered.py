@@ -304,7 +304,7 @@ def test_three_tier_engine_matches_reference_engine(tmp_path):
             np.testing.assert_array_equal(b[0], a[0])
             np.testing.assert_array_equal(b[1], a[1])
         sj, st = je.stats(), te.stats()
-        assert set(st) == set(sj) - {"modeled_us_per_access"}
+        assert set(st) == set(sj)
         for k in ("accesses", "hits", "misses", "promotions", "evictions",
                   "transfers", "cpu_computed", "host_hits", "disk_reads",
                   "demotions", "host_resident", "spec_hits", "spec_misses",
@@ -381,18 +381,35 @@ def test_pq_engine_fused_dispatch_budget(tmp_path):
 
 
 def test_tiered_engine_refuses_what_is_not_ported(tmp_path):
-    """What stays unported (the partitioned build, ROADMAP A.2) raises;
-    so do a manifest of an unknown format, the PQ lane without the
-    three-tier mode, an unknown cache dtype and an attribute store of
-    the wrong capacity."""
+    """The partitioned build, which raised until it was ported, now
+    builds the reference engine's disk tier and answers as it does; a
+    manifest of an unknown format, the PQ lane without the three-tier
+    mode, an unknown cache dtype and an attribute store of the wrong
+    capacity are refused."""
     from repro_torch.core.filters import AttributeSchema
     from repro_torch.core.wal import WALCorruptionError
     vecs = np.random.default_rng(0).normal(size=(64, 8)).astype(np.float32)
-    base = dict(degree=8, cache_slots=16, capacity=128, disk_capacity=128,
-                device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TE.SVFusionEngine(vecs, TE.EngineConfig(
-            disk_path=str(tmp_path / "w"), build_partitions=2, **base))
+    base = dict(degree=8, cache_slots=16, capacity=128, disk_capacity=128)
+    iv = np.round(vecs * 3)
+    part = dict(build_partitions=2, build_cross_samples=24, coalesce=False,
+                prefetch=False, spec_rank="flam", **base)
+    sp = dict(k=5, pool=16, max_iters=16)
+    je = JE.SVFusionEngine(iv, JE.EngineConfig(
+        disk_path=str(tmp_path / "wj"), search=JaxSearchParams(**sp),
+        **part))
+    te = TE.SVFusionEngine(iv, TE.EngineConfig(
+        disk_path=str(tmp_path / "w"), search=SearchParams(**sp),
+        device="cpu", **part))
+    try:
+        np.testing.assert_array_equal(te._backend.store.disk.nbr,
+                                      je._backend.store.disk.nbr)
+        a, b = je.search(iv[:6] + 1), te.search(iv[:6] + 1)
+        np.testing.assert_array_equal(b[0], a[0])
+        np.testing.assert_array_equal(b[1], a[1])
+    finally:
+        je.close()
+        te.close()
+    base["device"] = "cpu"
     (tmp_path / "m").mkdir()
     (tmp_path / "m" / "manifest.json").write_text("{}")
     with pytest.raises(WALCorruptionError, match="format"):
