@@ -3,15 +3,16 @@
 the three-tier engine with the PQ lane and the fused topology executor,
 their searches and their write paths (streaming inserts and deletes,
 MVCC consolidation), the partitioned build, the sharded search, the
-GPU baseline and the cost model.
+GPU baseline, the cost model, and the LM serving path with retrieval-
+augmented serving over a live index.
 
 Usage: python3 chip_smoke.py [--seed S] [--only PHASES]
 
 Phases, each printing JSON lines (any failure raises and exits non-zero;
 there is no CPU branch). ``--only`` runs a comma-separated subset of
 kernels, parity, write_parity, durability, main, tiered, consolidation,
-partitioned, distributed, baselines, calibrate; the kernels line is
-printed only when all run.
+partitioned, distributed, baselines, calibrate, serve; the kernels line
+is printed only when all run.
 
 1. device        card name and power limit (nvidia-smi), torch and CUDA.
 2. build         nvcc builds every kernel (l2_gather, pq_adc, row_gather,
@@ -22,7 +23,9 @@ printed only when all run.
                  time of a near-empty launch and (topk_merge) the nearest
                  library call; pq_adc also at the filtered scan's shape
                  ([1,024 x Mp] ids, Mp = 32,768 and 131,072) with the
-                 call's peak device memory.
+                 call's peak device memory; l2_gather also at the RAG
+                 index's retrieval shape (table [2^18, 576], ids [1,024 x
+                 512]), which takes its ROWS_VEC path.
 4. parity        on an integer-valued index, the device-mode executor and
                  ``search_tiered`` (PQ lane, topology cache, speculation)
                  on the CPU (plain versions) and on the card (kernels)
@@ -90,6 +93,28 @@ printed only when all run.
                  deletes, each followed by a 1,024-query search.
 13. calibrate    ``calibrate.measure(dim=96)`` on the card, beside the
                  main and tiered engines' ``modeled_us_per_access``.
+14. serve        the dense LM serving path. Card against CPU on the smoke
+                 configs of smollm_135m and qwen3_0p6b (fp32: logits
+                 within 1e-4 and identical ServeEngine token ids; bf16:
+                 logits within 2e-2). SmolLM-135M at its published width
+                 (params from the seed): prefill of 8 x 128 tokens and
+                 one decode step against forward_lm, held in fp32 and
+                 reported in bf16. A RAGPipeline over a device-mode
+                 index (2^18 capacity, degree 32, pool 64, beam 16,
+                 131,072 cache slots) takes 131,072 topic-mixture
+                 documents of 64 tokens in 16 ingests; a ServeEngine (8
+                 slots, 256 positions) serves 32 prompts augmented by
+                 retrieval (k=2, budget 128), 32 new tokens each, then
+                 qwen3-0.6B at its width serves 8; eight retrieve_batch
+                 requests of 1,024 prompts (l2_gather launches read
+                 around them alone) and one retrieve_many of 8 x 128,
+                 recall@10 against brute force and self-retrieval
+                 (reported: the reference's algorithm misses the floors
+                 on this corpus, scripts/reference_cpu_checks.py), a
+                 profile of three batches, and the oldest 8,192
+                 documents evicted and never returned. Last, the same
+                 index configuration on synthetic descriptors at D = 576
+                 holds the floors: read-after-write 0.9, recall@10 0.5.
 
 Then the kernels line, the card line, and the final status line.
 """
@@ -114,7 +139,7 @@ FP32_FLOPS = 67e12            # H100 SXM fp32 outside the tensor cores
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 PHASES = ("kernels", "parity", "write_parity", "durability", "main",
           "tiered", "consolidation", "partitioned", "distributed",
-          "baselines", "calibrate")
+          "baselines", "calibrate", "serve")
 
 
 def emit(phase, **kw):
@@ -167,18 +192,22 @@ def l2_gather_bound_ms(table, ids):
 def phase_kernel(gen, dev):
     """l2_gather against its plain version at the main paths' shapes: the
     capacity table [2^20, 96], the cache table [131072, 96], ids [1024,
-    512] with -1 lanes, duplicates and the boundary ids; bf16 once; and
-    the device-mode insert's candidate search, ids [512, 512]."""
+    512] with -1 lanes, duplicates and the boundary ids; bf16 once; the
+    device-mode insert's candidate search, ids [512, 512]; and the RAG
+    index's retrieval (serve phase): table [2^18, 576], ids [1024, beam x
+    degree], which takes the kernel's ROWS_VEC path."""
     import torch
     from repro_torch.kernels.l2_gather import kernel as K
     from repro_torch.kernels.l2_gather.ref import l2_gather_ref
-    C, D = 512, 96
+    rag = rag_index_config("cpu", 0)
     rows = {}
-    for label, n, dtype, B in (("capacity", 1 << 20, torch.float32, 1024),
-                               ("cache", 131_072, torch.float32, 1024),
-                               ("capacity_bf16", 1 << 20, torch.bfloat16,
-                                1024),
-                               ("insert", 1 << 20, torch.float32, 512)):
+    for label, n, D, dtype, B, C in (
+            ("capacity", 1 << 20, 96, torch.float32, 1024, 512),
+            ("cache", 131_072, 96, torch.float32, 1024, 512),
+            ("capacity_bf16", 1 << 20, 96, torch.bfloat16, 1024, 512),
+            ("insert", 1 << 20, 96, torch.float32, 512, 512),
+            ("rag", rag.capacity, 576, torch.float32, RAG_BATCH,
+             rag.search.beam * rag.degree)):
         q = torch.randn(B, D, generator=gen, device=dev)
         table = torch.randn(n, D, generator=gen, device=dev).to(dtype)
         ids = torch.randint(0, n, (B, C), generator=gen, device=dev,
@@ -202,12 +231,16 @@ def phase_kernel(gen, dev):
         ms = cuda_ms(lambda: K.l2_gather(table, ids, q), 30)
         plain_ms = cuda_ms(lambda: l2_gather_ref(table, ids, q), 10)
         bound_ms, bound_by = l2_gather_bound_ms(table, ids)
+        geo = K.launch_geometry(B, C, D, table.element_size())
         rows[label] = dict(shape=[n, D, B, C], dtype=str(dtype),
+                           path=("rows", "rows_vec", "groups")[geo.path],
                            max_abs_err=max_abs, max_rel_err=max_rel, tol=tol,
                            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                            bound_by=bound_by)
         emit("kernel", kernel="l2_gather", table=label, **rows[label])
         del table, ids, out, ref, q
+    if rows["rag"]["path"] != "rows_vec":
+        raise AssertionError(f"the RAG shape took {rows['rag']['path']}")
     return rows
 
 
@@ -2363,6 +2396,371 @@ def phase_calibrate(dev, modeled):
         raise AssertionError(f"calibrate: {cm}")
 
 
+# ---------------------------------------------------------------------------
+# serve: the LM serving path and RAG over the live index
+# ---------------------------------------------------------------------------
+
+RAG_BATCH = 1024                 # prompts per retrieval request
+RAG_DOCS, RAG_DOC_LEN = 131_072, 64
+RAG_TOPICS, RAG_SLICE, RAG_ZIPF = 1024, 2048, 1.1
+RAG_INGEST, RAG_EVICT = 8192, 8192  # documents per ingest call; evicted
+
+
+def rag_index_config(dev, seed):
+    """The RAG index: Deep1B's graph and search settings and the main
+    phase's exact-vector cache, on a 2^18-row capacity."""
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.core.types import SearchParams
+    return EngineConfig(degree=32, capacity=1 << 18, cache_slots=131_072,
+                        search=SearchParams(k=10, pool=64, max_iters=64,
+                                            beam=16),
+                        seed=seed, device=str(dev))
+
+
+def topic_corpus(rng, vocab, topics=RAG_TOPICS, width=RAG_SLICE,
+                 s=RAG_ZIPF, stride=None):
+    """Documents as a topic mixture: a document picks one of ``topics``
+    topics and draws its tokens independently from that topic's slice of
+    the vocabulary, the ``width`` consecutive token ids from topic x
+    ``stride`` (default vocab // topics) on (mod vocab), with Zipf(``s``)
+    weights in id order. Neighbouring topics share most of their slices but not their
+    most frequent tokens. Returns draw(n, length) -> [n, length] int32
+    tokens (numpy, from ``rng``)."""
+    w = np.arange(1, width + 1, dtype=np.float64) ** -s
+    w /= w.sum()
+    stride = stride or vocab // topics
+
+    def draw(n, length):
+        topic = rng.integers(0, topics, n)
+        rank = rng.choice(width, size=(n, length), p=w)
+        return ((topic[:, None] * stride + rank) % vocab).astype(np.int32)
+    return draw
+
+
+def _max_err(a, b):
+    return (a.float().cpu() - b.float().cpu()).abs().max().item()
+
+
+def _close(a, b, tol, what):
+    a, b = a.float().cpu(), b.float().cpu()
+    if not bool(((a - b).abs() <= tol + tol * b.abs()).all()):
+        raise AssertionError(f"{what}: max abs err {_max_err(a, b)} above "
+                             f"rtol = atol = {tol}")
+
+
+def doc_ids(rows, ids, dev, k=10):
+    """Index ids [len(rows), k] of retrieved Docs (``doc_id`` indexes
+    ``ids``), -1 where fewer than k came back."""
+    import torch
+    out = np.full((len(rows), k), -1, np.int64)
+    for i, row in enumerate(rows):
+        out[i, :len(row)] = ids[[d.doc_id for d in row]]
+    return torch.as_tensor(out, device=dev)
+
+
+def serve_requests(eng, prompts, max_new):
+    """Submit ``prompts`` to a ServeEngine and drain it. Returns (ticks,
+    seconds, {rid: tokens}, the ticks' own durations as the engine's
+    straggler check read them); the card is synchronised at both ends."""
+    import torch
+    from repro_torch.serve.engine import Request
+    tick_s, observe = [], eng._observe_tick
+    eng._observe_tick = lambda dt: (tick_s.append(dt), observe(dt))[1]
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new=max_new))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ticks = eng.run_until_drained()
+    torch.cuda.synchronize()
+    return (ticks, time.perf_counter() - t0,
+            {r.rid: r.tokens for r in eng.completed}, tick_s)
+
+
+def serve_stats(eng, n, max_new, ticks, seconds, out, tick_s):
+    """Tick percentiles and generated tokens/s of a drained ServeEngine
+    that served ``n`` requests of ``max_new`` new tokens."""
+    t = np.array(tick_s) * 1e3
+    done = sum(len(v) for v in out.values())
+    if len(out) != n or any(len(v) != max_new for v in out.values()):
+        raise AssertionError(f"{len(out)} of {n} requests finished")
+    return dict(requests=len(out), ticks=ticks, seconds=seconds,
+                tick_p50_ms=float(np.percentile(t, 50)),
+                tick_p99_ms=float(np.percentile(t, 99)),
+                generated_tokens=done, tokens_per_s=done / seconds,
+                stragglers=eng.stragglers)
+
+
+def phase_serve_parity(dev, seed, n_req=7):
+    """Card against CPU on the smoke configs of smollm_135m and qwen3_0p6b
+    (qk_norm, rope_theta 1e6), the same params on both: forward_lm and
+    decode_step logits within TOL[dtype], and a ServeEngine run (3
+    slots, 7 requests, no re-dispatch) with identical token ids at fp32
+    (reported at bf16)."""
+    import torch
+    from repro_torch.configs.base import load_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import tree_map
+    from repro_torch.serve.engine import ServeEngine
+    rng = np.random.default_rng(seed)
+    for arch in ("smollm_135m", "qwen3_0p6b"):
+        for dtype in ("float32", "bfloat16"):
+            cfg = load_smoke_config(arch).replace(dtype=dtype)
+            p_cpu = M.init_params(cfg, torch.Generator().manual_seed(seed))
+            p_dev = tree_map(lambda a: a.to(dev), p_cpu)
+            tok = torch.as_tensor(rng.integers(0, cfg.vocab, (3, 17),
+                                               dtype=np.int32))
+            tol = TOL[dtype]
+            full = [M.forward_lm(cfg, p, tok) for p in (p_cpu, p_dev)]
+            _close(full[1], full[0], tol, f"{arch} {dtype} forward_lm")
+            dec = []
+            for p in (p_cpu, p_dev):
+                _, cache = M.prefill(cfg, p, {"tokens": tok[:, :16]}, 32)
+                cache["len"] = torch.tensor([16, 9, 3], dtype=torch.int32,
+                                            device=cache["k"].device)
+                dec.append(M.decode_step(cfg, p, cache, tok[:, 16:])[0])
+            _close(dec[1], dec[0], tol, f"{arch} {dtype} decode_step")
+            prompts = [rng.integers(0, cfg.vocab, size=n, dtype=np.int32)
+                       for n in rng.integers(2, 12, n_req)]
+            ids = [serve_requests(ServeEngine(
+                cfg, p_cpu, slots=3, max_len=24, device=d,
+                straggler_factor=float("inf")), prompts, 6)[2]
+                for d in ("cpu", dev)]
+            same = sum(ids[0][r] == ids[1][r] for r in ids[0])
+            emit("serve_parity", arch=arch, dtype=dtype, tol=tol,
+                 forward_max_abs_err=_max_err(full[1], full[0]),
+                 decode_max_abs_err=_max_err(dec[1], dec[0]),
+                 requests=n_req, identical_token_ids=same)
+            if dtype == "float32" and same != n_req:
+                raise AssertionError(f"{arch}: token ids differ between "
+                                     "the CPU and the card")
+
+
+def serve_prefill_decode(cfg, params, rng, dev):
+    """The reference's prefill/decode check (tests/test_models.py) at the
+    config's width: prefill over 8 x 128 tokens and one decode step, both
+    against forward_lm on the 129 tokens. Held in fp32 within
+    TOL["float32"]; in the config's bf16 the errors are reported beside
+    the reference's bound (rtol 2e-2, atol 1e-2), which the reference
+    itself misses at this width (scripts/reference_cpu_checks.py)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import tree_leaves
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab, (8, 129),
+                                       dtype=np.int32), device=dev)
+    for dtype in ("float32", cfg.dtype):
+        c = cfg.replace(dtype=dtype)
+        full = M.forward_lm(c, params, tok)
+        lg_pre, cache = M.prefill(c, params, {"tokens": tok[:, :128]}, 256)
+        lg_dec, _ = M.decode_step(c, params, cache, tok[:, 128:])
+        out = {}
+        for a, b, what in ((full[:, 127], lg_pre[:, 0], "prefill"),
+                           (full[:, 128], lg_dec[:, 0], "decode")):
+            a, b = a.float(), b.float()
+            err = (a - b).abs()
+            out[f"{what}_max_abs_err"] = err.max().item()
+            out[f"{what}_over_reference_bound"] = int(
+                (err > 1e-2 + 2e-2 * b.abs()).sum())
+            if dtype == "float32":
+                _close(b, a, TOL["float32"], f"{cfg.name} {what}")
+        emit("serve_prefill_decode", arch=cfg.name, dtype=dtype,
+             params=sum(t.numel() for t in tree_leaves(params)),
+             tokens=[8, 129], logits=int(full[:, 127].numel()),
+             held_within=TOL["float32"] if dtype == "float32" else None,
+             **out)
+        del full, lg_pre, lg_dec, cache
+
+
+def rag_ingest(cfg, params, draw, dev, seed):
+    """A RAGPipeline on the card over ``rag_index_config``, fed RAG_DOCS
+    documents of RAG_DOC_LEN tokens in ingests of RAG_INGEST. Returns
+    (rag, docs [RAG_DOCS, RAG_DOC_LEN], their index ids)."""
+    import torch
+    from repro_torch.serve.rag import Doc, RAGPipeline
+    t0 = time.perf_counter()
+    rag = RAGPipeline(cfg, params, rag_index_config(dev, seed))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    docs = draw(RAG_DOCS, RAG_DOC_LEN)
+    ids = []
+    t0 = time.perf_counter()
+    for s in range(0, RAG_DOCS, RAG_INGEST):
+        ids.append(rag.ingest([Doc(i, docs[i]) for i in
+                               range(s, min(s + RAG_INGEST, RAG_DOCS))]))
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    g, c = rag.index.state.graph, rag.index.state.cache
+    emit("serve_rag_ingest", docs=RAG_DOCS, doc_tokens=RAG_DOC_LEN,
+         dim=rag.dim, topics=RAG_TOPICS, build_s=build_s, ingest_s=ingest_s,
+         docs_per_s=RAG_DOCS / ingest_s,
+         ingest_calls=len(range(0, RAG_DOCS, RAG_INGEST)),
+         vector_bytes=g.vectors.numel() * g.vectors.element_size(),
+         graph_bytes=g.nbrs.numel() * g.nbrs.element_size(),
+         cache_bytes=c.vectors.numel() * c.vectors.element_size())
+    return rag, docs, np.concatenate(ids)
+
+
+def serve_lm(cfg, params, rag, draw, rng, dev, seed):
+    """ServeEngine at the reference's defaults (8 slots, 256 positions):
+    32 prompts of 8-24 tokens, each augmented by retrieval (k=2, budget
+    128), 32 new tokens each; then qwen3-0.6B at its published width
+    (qk_norm, vocab 151,936), 8 prompts of 8-24 tokens."""
+    import torch
+    from repro_torch.configs.base import load_config
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeEngine
+    prompts = [rag.augment(draw(1, int(n))[0], k=2, budget=128)
+               for n in rng.integers(8, 25, 32)]
+    eng = ServeEngine(cfg, params, slots=8, max_len=256, device=dev)
+    st = serve_stats(eng, 32, 32, *serve_requests(eng, prompts, 32))
+    emit("serve_lm", arch=cfg.name, slots=8, max_len=256,
+         prompt_tokens=[min(len(p) for p in prompts),
+                        max(len(p) for p in prompts)], **st)
+    del eng
+    qcfg = load_config("qwen3_0p6b")
+    qparams = M.init_params(qcfg, torch.Generator(device=dev)
+                            .manual_seed(seed))
+    eng = ServeEngine(qcfg, qparams, slots=8, max_len=256, device=dev)
+    st = serve_stats(eng, 8, 32, *serve_requests(
+        eng, [rng.integers(0, qcfg.vocab, int(n), dtype=np.int32)
+              for n in rng.integers(8, 25, 8)], 32))
+    emit("serve_lm", arch=qcfg.name, slots=8, max_len=256, **st)
+
+
+def rag_retrieval(rag, draw, docs, ids, rng, dev):
+    """Eight retrieve_batch requests of RAG_BATCH prompts (fresh
+    documents' first 32 tokens; l2_gather launches read around them
+    alone) and one retrieve_many of 8 batches of 128, recall@10 against
+    brute force over the alive rows; self-retrieval of RAG_BATCH
+    ingested documents and the share of documents no row links to; a
+    profile of three batches; then the oldest RAG_EVICT documents
+    evicted and queried again: none may come back. Returns the
+    launches."""
+    import torch
+    from repro_torch.core.search import brute_force_topk, recall_at_k
+    from repro_torch.kernels.l2_gather import kernel as K
+    g = rag.index.state.graph
+    batches = [draw(RAG_BATCH, RAG_DOC_LEN)[:, :32] for _ in range(8)]
+    vecs = [rag.embed(b) for b in batches]
+    truth = [brute_force_topk(g, torch.as_tensor(v, device=dev), 10)[0]
+             for v in vecs]
+    torch.cuda.synchronize()
+    K.launches = 0
+    ms, found = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        found.append(rag.retrieve_batch(b, k=10))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = K.launches
+    recalls = [float(recall_at_k(doc_ids(rows, ids, dev), t))
+               for rows, t in zip(found, truth)]
+    split = [batches[0][s:s + 128] for s in range(0, RAG_BATCH, 128)]
+    t0 = time.perf_counter()
+    many = rag.retrieve_many(split, k=10)
+    many_ms = (time.perf_counter() - t0) * 1e3
+    emit("serve_rag_retrieval", batches=len(batches), prompts=RAG_BATCH,
+         ms=ms, recall_at_10=recalls, l2_gather_launches=launches,
+         l2_gather_per_batch=launches / len(batches),
+         retrieve_many=dict(batches=len(split), ms=many_ms,
+                            recall_at_10=float(recall_at_k(doc_ids(
+                                sum(many, []), ids, dev), truth[0]))))
+    pick = rng.choice(RAG_DOCS, RAG_BATCH, replace=False)
+    own, _ = rag.index.search(rag.embed(docs[pick]))
+    e_in = rag.index.state.graph.e_in[torch.as_tensor(ids, device=dev)
+                                      .long()]
+    phase_profile(rag.index, [torch.as_tensor(v) for v in vecs[:3]],
+                  phase="serve_rag_profile")
+    gone = ids[:RAG_EVICT]
+    rag.evict(gone)
+    back, _ = rag.index.search(rag.embed(docs[pick % RAG_EVICT]))
+    leaked = int(np.isin(back, gone).sum())
+    emit("serve_rag_quality", self_retrieval=float(
+        (own[:, 0] == ids[pick]).mean()), docs_without_in_edges=float(
+        (e_in == 0).float().mean()), max_in_degree=int(e_in.max()),
+         evicted=len(gone), evicted_returned=leaked,
+         peak_device_bytes=torch.cuda.max_memory_allocated())
+    if leaked or not launches:
+        raise AssertionError(f"RAG: {leaked} evicted ids returned, "
+                             f"{launches} l2_gather launches")
+    return launches
+
+
+def phase_index_floors(gen, dev, seed, d=576, floors=(0.9, 0.5)):
+    """The RAG index's configuration at D = 576 filled with the main
+    phase's synthetic descriptors: RAG_DOCS rows inserted in RAG_INGEST
+    calls beside the pipeline's 256 seed rows, eight searches of
+    RAG_BATCH fresh queries (recall@10 against brute force),
+    read-after-write of RAG_BATCH inserted rows, and the oldest
+    RAG_EVICT deleted and queried again. The floors (read-after-write
+    0.9, recall@10 0.5, no deleted id returned) catch a broken index
+    path here; the topic corpus misses the first two in the reference's
+    algorithm too (scripts/reference_cpu_checks.py, PERF.md §6)."""
+    import torch
+    from repro_torch.core.engine import SVFusionEngine
+    from repro_torch.core.search import brute_force_topk, recall_at_k
+    draw = synthetic_descriptors(gen, RAG_DOCS, d, dev)
+    eng = SVFusionEngine(np.random.default_rng(0).normal(
+        size=(256, d)).astype(np.float32), rag_index_config(dev, seed))
+    try:
+        vecs = draw(RAG_DOCS).cpu().numpy()
+        t0 = time.perf_counter()
+        ids = np.concatenate([eng.insert(vecs[s:s + RAG_INGEST])
+                              for s in range(0, RAG_DOCS, RAG_INGEST)])
+        insert_s = time.perf_counter() - t0
+        recalls = []
+        for _ in range(8):
+            q = draw(RAG_BATCH)
+            found, _ = eng.search(q.cpu().numpy())
+            truth = brute_force_topk(eng.state.graph, q, 10)[0]
+            recalls.append(float(recall_at_k(
+                torch.as_tensor(found, device=dev), truth)))
+        pick = np.random.default_rng(seed).choice(RAG_DOCS, RAG_BATCH,
+                                                  replace=False)
+        own, _ = eng.search(vecs[pick])
+        raw = float((own[:, 0] == ids[pick]).mean())
+        eng.delete(ids[:RAG_EVICT])
+        back, _ = eng.search(vecs[pick % RAG_EVICT])
+        leaked = int(np.isin(back, ids[:RAG_EVICT]).sum())
+    finally:
+        eng.close()
+    emit("serve_index_floors", rows=RAG_DOCS, dim=d, insert_s=insert_s,
+         recall_at_10=recalls, read_after_write=raw, deleted=RAG_EVICT,
+         deleted_returned=leaked, floors=dict(read_after_write=floors[0],
+                                              recall_at_10=floors[1]))
+    if raw < floors[0] or min(recalls) < floors[1] or leaked:
+        raise AssertionError(f"RAG index at D={d}: read-after-write {raw}, "
+                             f"recall@10 {min(recalls)}, {leaked} deleted "
+                             "ids returned")
+
+
+def phase_serve(dev, seed):
+    """The LM serving path at SmolLM-135M's published width and RAG over a
+    live device-mode index of RAG_DOCS documents (its ingest comes
+    before the serving requests, whose prompts it augments). Its data
+    come from ``seed`` alone, so that it draws the same whether it runs
+    alone or after the other phases. Returns the l2_gather launches of
+    the retrieval requests."""
+    import torch
+    from repro_torch.configs.base import load_config
+    from repro_torch.models import model as M
+    phase_serve_parity(dev, seed)
+    rng = np.random.default_rng(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = load_config("smollm_135m")
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+    serve_prefill_decode(cfg, params, rng, dev)
+    draw = topic_corpus(rng, cfg.vocab)
+    rag, docs, ids = rag_ingest(cfg, params, draw, dev, seed)
+    try:
+        serve_lm(cfg, params, rag, draw, rng, dev, seed)
+        launches = rag_retrieval(rag, draw, docs, ids, rng, dev)
+    finally:
+        rag.index.close()
+    phase_index_floors(torch.Generator(device=dev).manual_seed(seed), dev,
+                       seed)
+    return launches
+
+
 def main():
     import torch
     ap = argparse.ArgumentParser()
@@ -2415,7 +2813,8 @@ def main():
         floor_ms = cuda_ms(lambda: torch.cuda._sleep(0), 30)
         emit("launch_floor", ms=floor_ms,
              method="cuda_ms of torch.cuda._sleep(0), 30 calls")
-        l2 = phase_kernel(gen, dev)["capacity"]
+        l2_rows = phase_kernel(gen, dev)
+        l2 = l2_rows["capacity"]
         pq_rows = phase_kernel_pq(gen, dev)
         pq = pq_rows["round"]
         rows = phase_kernel_rows(gen, dev)
@@ -2450,6 +2849,8 @@ def main():
                               for name, kept in (("main", main_kept),
                                                  ("tiered", tiered_kept))
                               if kept})
+    if "serve" in only:
+        l2_rag_launches = phase_serve(dev, args.seed)
     emit("phases", ran=only, seconds=time.perf_counter() - t_run)
 
     if only == list(PHASES):
@@ -2461,7 +2862,10 @@ def main():
             dict(name="l2_gather", replaces="src/repro/kernels/l2_gather/"
                  "kernel.py:54", launches=l2_launches, row=l2,
                  extra=dict(launches_build=l2_build_launches,
-                            **{f"{k}_build": l2_build[k]
+                            launches_rag=l2_rag_launches,
+                            **{f"{k}_{shape}": row[k]
+                               for shape, row in (("build", l2_build),
+                                                  ("rag", l2_rows["rag"]))
                                for k in ("ms", "plain_ms", "bound_ms",
                                          "max_abs_err")})),
             dict(name="pq_adc", replaces="src/repro/kernels/pq_adc/"

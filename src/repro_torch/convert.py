@@ -15,7 +15,11 @@ directory), ``host_placement_from_arrays`` and
 ``attribute_store_from_arrays`` the attribute columns of filtered search
 (the reference's ``schema.to_meta()``, ``tags`` and ``nums``).
 ``shard_rows`` cuts one shard's rows out of the sharded index's global
-arrays (``core/distributed.py``).
+arrays (``core/distributed.py``). ``model_params_from_arrays`` carries an
+LM's params (the reference's pytree as nested dicts of numpy arrays,
+``jax.tree.map(np.asarray, params)``) into the port, so that both
+packages compute with the same weights; ``model_params_to_arrays`` goes
+back.
 """
 from __future__ import annotations
 
@@ -143,3 +147,21 @@ def attribute_store_from_arrays(schema_meta: dict, tags, nums, capacity: int,
     return AttributeStore(AttributeSchema.from_meta(schema_meta), capacity,
                           tags=np.asarray(tags, np.int32),
                           nums=np.asarray(nums, np.float32), device=device)
+
+
+def model_params_from_arrays(tree, device, dtype=None):
+    """An LM param tree (nested dicts of arrays) as fp32 tensors on
+    ``device`` (a bf16 source is exact in fp32), cast to ``dtype`` when
+    given."""
+    if isinstance(tree, dict):
+        return {k: model_params_from_arrays(v, device, dtype)
+                for k, v in tree.items()}
+    t = torch.as_tensor(np.array(tree, np.float32), device=device)
+    return t if dtype is None else t.to(dtype)
+
+
+def model_params_to_arrays(params):
+    """The port's LM params as nested dicts of fp32 numpy arrays."""
+    if isinstance(params, dict):
+        return {k: model_params_to_arrays(v) for k, v in params.items()}
+    return params.detach().float().cpu().numpy()

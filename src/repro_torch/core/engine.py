@@ -181,13 +181,21 @@ class EngineConfig:
     #                                      kernels (tests)
 
     def __post_init__(self):
-        dev = torch.device(self.device)
-        if dev.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"EngineConfig(device={self.device!r}): no CUDA device is "
-                "available; pass device=\"cpu\" to run on the CPU")
-        if dev.type not in ("cuda", "cpu"):
-            raise ValueError(f"unsupported device {self.device!r}")
+        resolve_device(self.device, "EngineConfig")
+
+
+def resolve_device(device, who: str) -> torch.device:
+    """``device`` as a torch.device for the entry point ``who``: asking for
+    CUDA without a card raises, and so does a device type other than
+    cuda and cpu."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who}(device={device!r}): no CUDA device is available; pass "
+            "device=\"cpu\" to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
 
 
 class ReadOnlyEngineError(RuntimeError):

@@ -1,0 +1,274 @@
+"""Core model building blocks: templates, norms, RoPE, attention, SwiGLU
+(twin of ``repro.models.layers``).
+
+Parameters are nested dicts of tensors. Every family builds a *template*
+— a nested dict of ``TSpec(shape, axes, scale)`` — from which the
+initialised params are drawn. ``axes`` keeps the reference's logical
+sharding names; on one card they are not read.
+
+The arithmetic follows the reference step for step, because serving
+compares token ids: the RMS-norm's sum of squares accumulates in fp32
+and its ``rsqrt`` is cast to the activation dtype before the multiply;
+RoPE rotates split halves in fp32; attention scores and softmax are
+fp32 with a -1e30 additive mask (not -inf), and the probabilities are
+cast to the query dtype before the PV product. Attention is written out
+rather than sent to ``scaled_dot_product_attention``, whose fused
+backends sum in another order. The reference's sharding constraints
+(``constrain``, ``weight_gather``, ``res_constrain``, ``sp_gather``) are
+identities on one card and have no counterpart here.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+NEG = -1e30          # the reference's additive mask value
+
+
+class TSpec(NamedTuple):
+    shape: tuple
+    axes: tuple            # logical axis names (None = replicated)
+    scale: float = 0.02    # normal init stddev; 0 -> zeros; -1 -> ones
+
+
+def tree_map(fn, tree):
+    """``fn`` on every leaf of a nested dict (keys in sorted order, as a
+    JAX pytree flattens them)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
+
+
+def init_from_template(gen: torch.Generator, template,
+                       dtype=torch.float32):
+    """Params drawn from ``gen`` on its device, leaf by leaf in sorted key
+    order: scale 0 gives zeros, -1 ones, anything else a standard normal
+    draw (fp32) times the scale, cast to ``dtype``. The reference draws
+    with ``jax.random`` and cannot be reproduced; parity tests carry its
+    params over with ``convert.model_params_from_arrays``."""
+    dev = gen.device
+
+    def draw(t: TSpec):
+        if t.scale == 0.0:
+            return torch.zeros(t.shape, dtype=dtype, device=dev)
+        if t.scale == -1.0:
+            return torch.ones(t.shape, dtype=dtype, device=dev)
+        return (torch.randn(t.shape, generator=gen, device=dev)
+                * t.scale).to(dtype)
+    return tree_map(draw, template)
+
+
+# ---------------------------------------------------------------------------
+# Norms / RoPE
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, weight, eps=1e-5):
+    # fp32 sum of squares over the activation dtype's operands (a bf16
+    # product is exact in fp32), then the multiply in x.dtype
+    sq = x.float().square().sum(-1)
+    var = (sq / x.shape[-1])[..., None]
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * weight.to(x.dtype)
+
+
+def rope_freqs(positions, head_dim, theta):
+    """positions [...], returns (cos, sin) of shape [..., head_dim//2]."""
+    half = head_dim // 2
+    inv = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                        device=positions.device) / half))
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x [B,S,H,D]; cos/sin [B,S,half] or [S,half]."""
+    dt = x.dtype
+    x = x.float()
+    x1, x2 = x.chunk(2, dim=-1)
+    if cos.ndim == 2:       # [S, half] -> [1, S, 1, half]
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    elif cos.ndim == 3:     # [B, S, half] -> [B, S, 1, half]
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def _mask_bias(qpos, kpos, *, causal, window, kv_len=None):
+    """Additive mask bias [*, S, T] (fp32) from absolute positions."""
+    q = qpos[..., :, None]
+    k = kpos[..., None, :]
+    cond = torch.ones(torch.broadcast_shapes(q.shape, k.shape),
+                      dtype=torch.bool, device=kpos.device)
+    if causal:
+        cond = cond & (k <= q)
+    if window:
+        cond = cond & (k > q - window)
+    if kv_len is not None:
+        cond = cond & (k < kv_len)
+    return torch.where(cond, 0.0, NEG).float()
+
+
+def _attn_core(q, k, v, bias):
+    """q [B,S,H,D]; k,v [B,T,H,D]; bias broadcastable to [B,1,S,T] (fp32)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
+    scores = scores + bias
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhst,bthd->bshd", probs, v)
+
+
+def repeat_kv(k, n_rep):
+    if n_rep == 1:
+        return k
+    return k.repeat_interleave(n_rep, dim=2)
+
+
+def attention(q, k, v, *, causal=True, q_offset=0, window=0, kv_len=None,
+              chunk=0):
+    """Multi-head attention with GQA repeat, optional sliding window and
+    query chunking (memory control for long prefill).
+
+    q [B,S,Hq,D]; k,v [B,T,Hkv,D]. q_offset: absolute position of q[0]
+    (scalar or [B]). kv_len: valid KV length (scalar or [B]) for decode.
+    """
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    dev = q.device
+    k = repeat_kv(k, Hq // Hkv)
+    v = repeat_kv(v, Hq // Hkv)
+    q_offset = torch.as_tensor(q_offset, device=dev)
+    kv_len_arr = None if kv_len is None else torch.as_tensor(kv_len,
+                                                             device=dev)
+    kpos = torch.arange(T, device=dev)
+
+    def block(qc, off):
+        Sc = qc.shape[1]
+        ar = torch.arange(Sc, device=dev)
+        if off.ndim == 0:
+            bias = _mask_bias(off + ar, kpos, causal=causal, window=window,
+                              kv_len=kv_len_arr
+                              if (kv_len_arr is None or kv_len_arr.ndim == 0)
+                              else None)[None, None]
+        else:  # per-batch offsets
+            bias = _mask_bias(off[:, None] + ar, kpos, causal=causal,
+                              window=window)[:, None]
+        if kv_len_arr is not None and kv_len_arr.ndim == 1:
+            bias = bias + torch.where(kpos[None, None, None, :]
+                                      < kv_len_arr[:, None, None, None],
+                                      0.0, NEG)
+        return _attn_core(qc, k, v, bias)
+
+    if chunk and S > chunk and S % chunk == 0:
+        return torch.cat([block(q[:, i:i + chunk], q_offset + i)
+                          for i in range(0, S, chunk)], dim=1)
+    return block(q, q_offset)
+
+
+def decode_attention(q, k_cache, v_cache, kv_len, *, window=0):
+    """Single-token decode attention. q [B,1,Hq,D]; caches [B,T,Hkv,D]."""
+    return attention(q, k_cache, v_cache, causal=False, window=window,
+                     q_offset=torch.as_tensor(kv_len) - 1 if window else 0,
+                     kv_len=kv_len)
+
+
+# ---------------------------------------------------------------------------
+# Attention block (projections + RoPE + attention)
+# ---------------------------------------------------------------------------
+
+def attn_template(cfg, stacked: Optional[int] = None):
+    D, Hq, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    L = (stacked,) if stacked else ()
+    LN = (None,) if stacked else ()
+    s = 0.02
+    t = {
+        "wq": TSpec(L + (D, Hq * Dh), LN + ("fsdp", "tensor"), s),
+        "wk": TSpec(L + (D, Hkv * Dh), LN + ("fsdp", "tensor"), s),
+        "wv": TSpec(L + (D, Hkv * Dh), LN + ("fsdp", "tensor"), s),
+        "wo": TSpec(L + (Hq * Dh, D), LN + ("tensor", "fsdp"),
+                    s / math.sqrt(2 * cfg.n_layers)),
+    }
+    if cfg.qk_norm:
+        t["q_norm"] = TSpec(L + (Dh,), LN + (None,), -1.0)
+        t["k_norm"] = TSpec(L + (Dh,), LN + (None,), -1.0)
+    return t
+
+
+def attn_qkv(p, x, cfg, positions):
+    """Project + RoPE. Returns q [B,S,Hq,D], k,v [B,S,Hkv,D]."""
+    B, S, _ = x.shape
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = x.dtype
+    q = (x @ p["wq"].to(dt)).reshape(B, S, Hq, Dh)
+    k = (x @ p["wk"].to(dt)).reshape(B, S, Hkv, Dh)
+    v = (x @ p["wv"].to(dt)).reshape(B, S, Hkv, Dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    cos, sin = rope_freqs(positions, Dh, cfg.rope_theta)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def attn_out(p, o, cfg):
+    B, S = o.shape[:2]
+    return o.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["wo"].to(o.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU)
+# ---------------------------------------------------------------------------
+
+def mlp_template(cfg, stacked: Optional[int] = None, d_ff=None):
+    D, Fd = cfg.d_model, d_ff or cfg.d_ff
+    L = (stacked,) if stacked else ()
+    LN = (None,) if stacked else ()
+    return {
+        "w_gate": TSpec(L + (D, Fd), LN + ("fsdp", "tensor"), 0.02),
+        "w_up": TSpec(L + (D, Fd), LN + ("fsdp", "tensor"), 0.02),
+        "w_down": TSpec(L + (Fd, D), LN + ("tensor", "fsdp"),
+                        0.02 / math.sqrt(2 * cfg.n_layers)),
+    }
+
+
+def mlp_apply(p, x):
+    dt = x.dtype
+    wg, wu, wd = (p[k].to(dt) for k in ("w_gate", "w_up", "w_down"))
+    return (F.silu(x @ wg) * (x @ wu)) @ wd
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head
+# ---------------------------------------------------------------------------
+
+def embed_template(cfg):
+    V, D = cfg.padded_vocab, cfg.d_model
+    t = {
+        "embed": TSpec((V, D), ("tensor", "fsdp"), 0.02),
+        "final_norm": TSpec((D,), (None,), -1.0),
+    }
+    if not cfg.tie_embeddings:
+        t["head"] = TSpec((D, V), ("fsdp", "tensor"), 0.02)
+    return t
+
+
+def embed_tokens(p, tokens, dtype):
+    # gather, then cast: the same values as casting the table first
+    return F.embedding(tokens.long(), p["embed"]).to(dtype)
+
+
+def lm_logits(p, x, cfg):
+    """Logits over the padded vocabulary (``cfg.padded_vocab`` wide)."""
+    w = p["head"] if not cfg.tie_embeddings else p["embed"].T
+    return x @ w.to(x.dtype)
