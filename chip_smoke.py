@@ -3,16 +3,17 @@
 the three-tier engine with the PQ lane and the fused topology executor,
 their searches and their write paths (streaming inserts and deletes,
 MVCC consolidation), the partitioned build, the sharded search, the
-GPU baseline, the cost model, and the LM serving path with retrieval-
-augmented serving over a live index.
+GPU baseline, the cost model, the LM serving path with retrieval-
+augmented serving over a live index, and the MoE, SSM, hybrid, VLM and
+enc-dec serving paths at their published widths.
 
 Usage: python3 chip_smoke.py [--seed S] [--only PHASES]
 
 Phases, each printing JSON lines (any failure raises and exits non-zero;
 there is no CPU branch). ``--only`` runs a comma-separated subset of
 kernels, parity, write_parity, durability, main, tiered, consolidation,
-partitioned, distributed, baselines, calibrate, serve; the kernels line
-is printed only when all run.
+partitioned, distributed, baselines, calibrate, serve, families; the
+kernels line is printed only when all run.
 
 1. device        card name and power limit (nvidia-smi), torch and CUDA.
 2. build         nvcc builds every kernel (l2_gather, pq_adc, row_gather,
@@ -115,6 +116,23 @@ is printed only when all run.
                  documents evicted and never returned. Last, the same
                  index configuration on synthetic descriptors at D = 576
                  holds the floors: read-after-write 0.9, recall@10 0.5.
+15. families     the other LM families, which launch no ported kernel.
+                 Card against CPU on the smoke configs of granite_moe_1b,
+                 grok1_314b (MoE), falcon_mamba_7b (SSM), hymba_1p5b
+                 (hybrid), internvl2_2b (VLM) and whisper_medium (enc-
+                 dec), as in serve. Then each published config but
+                 grok-1 (314B params do not fit one card), params from
+                 the seed, one at a time: the prefill/decode check held in
+                 fp32 and reported in bf16 (granite-moe-1b with the dense
+                 oracle, its capacity dispatch reported against it; falcon-
+                 mamba-7b 8 x 129 tokens; hymba-1.5b 2 x 1,281 tokens on
+                 1,536 positions, past its 1,024-token window;
+                 internvl2-2b 256 patches + 8 x 129 tokens; whisper-medium
+                 1,500 frames + 8 x 129 tokens); then in bf16 a
+                 ServeEngine (8 slots, 256 positions) serves 8 requests of
+                 8-24 tokens, 32 new tokens each (granite, falcon-mamba,
+                 hymba), or prefill and 32 decode_steps of 8 prompts
+                 (internvl2, whisper); params and peak device bytes.
 
 Then the kernels line, the card line, and the final status line.
 """
@@ -139,7 +157,7 @@ FP32_FLOPS = 67e12            # H100 SXM fp32 outside the tensor cores
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 PHASES = ("kernels", "parity", "write_parity", "durability", "main",
           "tiered", "consolidation", "partitioned", "distributed",
-          "baselines", "calibrate", "serve")
+          "baselines", "calibrate", "serve", "families")
 
 
 def emit(phase, **kw):
@@ -2472,6 +2490,7 @@ def serve_requests(eng, prompts, max_new):
     t0 = time.perf_counter()
     ticks = eng.run_until_drained()
     torch.cuda.synchronize()
+    del eng._observe_tick       # no cycle keeps the engine's cache alive
     return (ticks, time.perf_counter() - t0,
             {r.rid: r.tokens for r in eng.completed}, tick_s)
 
@@ -2490,33 +2509,58 @@ def serve_stats(eng, n, max_new, ticks, seconds, out, tick_s):
                 stragglers=eng.stragglers)
 
 
-def phase_serve_parity(dev, seed, n_req=7):
-    """Card against CPU on the smoke configs of smollm_135m and qwen3_0p6b
-    (qk_norm, rope_theta 1e6), the same params on both: forward_lm and
-    decode_step logits within TOL[dtype], and a ServeEngine run (3
-    slots, 7 requests, no re-dispatch) with identical token ids at fp32
-    (reported at bf16)."""
+def lm_extra(cfg, rng, B, frames=16, patches=None):
+    """What a family's forward takes besides tokens, from ``rng`` on the
+    CPU: the vlm's patch embeddings [B, patches (default n_patches), D],
+    the enc-dec's frame embeddings [B, frames, D]."""
+    import torch
+    shape = {"vlm": ("patches", patches or cfg.n_patches),
+             "encdec": ("frames", frames)}.get(cfg.family)
+    if shape is None:
+        return {}
+    return {shape[0]: torch.as_tensor(rng.normal(
+        size=(B, shape[1], cfg.d_model)).astype(np.float32))}
+
+
+def lm_forward(cfg, params, tok, extra):
+    """forward_encdec for the enc-dec family, else forward_lm (logits of
+    the patch positions first for the vlm)."""
+    from repro_torch.models import model as M
+    if cfg.family == "encdec":
+        return M.forward_encdec(cfg, params, extra["frames"], tok)
+    return M.forward_lm(cfg, params, tok, extra.get("patches"))
+
+
+def phase_serve_parity(dev, seed, archs=("smollm_135m", "qwen3_0p6b"),
+                       phase="serve_parity", n_req=7):
+    """Card against CPU on the smoke configs of ``archs`` (by default
+    smollm_135m and qwen3_0p6b: qk_norm, rope_theta 1e6), the same params
+    on both: forward and decode_step logits within TOL[dtype], and a
+    ServeEngine run (3 slots, 7 requests, no re-dispatch) with identical
+    token ids at fp32 (reported at bf16)."""
     import torch
     from repro_torch.configs.base import load_smoke_config
     from repro_torch.models import model as M
     from repro_torch.models.layers import tree_map
     from repro_torch.serve.engine import ServeEngine
     rng = np.random.default_rng(seed)
-    for arch in ("smollm_135m", "qwen3_0p6b"):
+    for arch in archs:
         for dtype in ("float32", "bfloat16"):
             cfg = load_smoke_config(arch).replace(dtype=dtype)
             p_cpu = M.init_params(cfg, torch.Generator().manual_seed(seed))
             p_dev = tree_map(lambda a: a.to(dev), p_cpu)
             tok = torch.as_tensor(rng.integers(0, cfg.vocab, (3, 17),
                                                dtype=np.int32))
+            extra = lm_extra(cfg, rng, 3)
             tol = TOL[dtype]
-            full = [M.forward_lm(cfg, p, tok) for p in (p_cpu, p_dev)]
-            _close(full[1], full[0], tol, f"{arch} {dtype} forward_lm")
+            full = [lm_forward(cfg, p, tok, extra) for p in (p_cpu, p_dev)]
+            _close(full[1], full[0], tol, f"{arch} {dtype} forward")
             dec = []
             for p in (p_cpu, p_dev):
-                _, cache = M.prefill(cfg, p, {"tokens": tok[:, :16]}, 32)
+                _, cache = M.prefill(cfg, p, {"tokens": tok[:, :16],
+                                              **extra}, 32)
                 cache["len"] = torch.tensor([16, 9, 3], dtype=torch.int32,
-                                            device=cache["k"].device)
+                                            device=cache["len"].device)
                 dec.append(M.decode_step(cfg, p, cache, tok[:, 16:])[0])
             _close(dec[1], dec[0], tol, f"{arch} {dtype} decode_step")
             prompts = [rng.integers(0, cfg.vocab, size=n, dtype=np.int32)
@@ -2526,7 +2570,7 @@ def phase_serve_parity(dev, seed, n_req=7):
                 straggler_factor=float("inf")), prompts, 6)[2]
                 for d in ("cpu", dev)]
             same = sum(ids[0][r] == ids[1][r] for r in ids[0])
-            emit("serve_parity", arch=arch, dtype=dtype, tol=tol,
+            emit(phase, arch=arch, family=cfg.family, dtype=dtype, tol=tol,
                  forward_max_abs_err=_max_err(full[1], full[0]),
                  decode_max_abs_err=_max_err(dec[1], dec[0]),
                  requests=n_req, identical_token_ids=same)
@@ -2535,26 +2579,31 @@ def phase_serve_parity(dev, seed, n_req=7):
                                      "the CPU and the card")
 
 
-def serve_prefill_decode(cfg, params, rng, dev):
+def serve_prefill_decode(cfg, params, rng, dev, B=8, S=128, max_len=256,
+                         extra=None, phase="serve_prefill_decode"):
     """The reference's prefill/decode check (tests/test_models.py) at the
-    config's width: prefill over 8 x 128 tokens and one decode step, both
-    against forward_lm on the 129 tokens. Held in fp32 within
-    TOL["float32"]; in the config's bf16 the errors are reported beside
-    the reference's bound (rtol 2e-2, atol 1e-2), which the reference
-    itself misses at this width (scripts/reference_cpu_checks.py)."""
+    config's width: prefill over B x S tokens (after the vlm's patches,
+    or over the enc-dec's frames) and one decode step, both against the
+    forward over the S + 1 tokens. Held in fp32 within TOL["float32"];
+    in the config's bf16 the errors are reported beside the reference's
+    bound (rtol 2e-2, atol 1e-2), which the reference itself misses at
+    SmolLM-135M's width (scripts/reference_cpu_checks.py)."""
     import torch
     from repro_torch.models import model as M
-    from repro_torch.models.layers import tree_leaves
-    tok = torch.as_tensor(rng.integers(0, cfg.vocab, (8, 129),
+    from repro_torch.models.layers import tree_leaves, tree_map
+    extra = tree_map(lambda a: a.to(dev), extra or {})
+    off = extra["patches"].shape[1] if "patches" in extra else 0
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S + 1),
                                        dtype=np.int32), device=dev)
     for dtype in ("float32", cfg.dtype):
         c = cfg.replace(dtype=dtype)
-        full = M.forward_lm(c, params, tok)
-        lg_pre, cache = M.prefill(c, params, {"tokens": tok[:, :128]}, 256)
-        lg_dec, _ = M.decode_step(c, params, cache, tok[:, 128:])
+        full = lm_forward(c, params, tok, extra)
+        lg_pre, cache = M.prefill(c, params, {"tokens": tok[:, :S],
+                                              **extra}, max_len)
+        lg_dec, cache = M.decode_step(c, params, cache, tok[:, S:])
         out = {}
-        for a, b, what in ((full[:, 127], lg_pre[:, 0], "prefill"),
-                           (full[:, 128], lg_dec[:, 0], "decode")):
+        for a, b, what in ((full[:, off + S - 1], lg_pre[:, 0], "prefill"),
+                           (full[:, off + S], lg_dec[:, 0], "decode")):
             a, b = a.float(), b.float()
             err = (a - b).abs()
             out[f"{what}_max_abs_err"] = err.max().item()
@@ -2562,9 +2611,13 @@ def serve_prefill_decode(cfg, params, rng, dev):
                 (err > 1e-2 + 2e-2 * b.abs()).sum())
             if dtype == "float32":
                 _close(b, a, TOL["float32"], f"{cfg.name} {what}")
-        emit("serve_prefill_decode", arch=cfg.name, dtype=dtype,
+        if int(cache["len"]) != off + S + 1:
+            raise AssertionError(f"{cfg.name}: cache len {cache['len']}")
+        emit(phase, arch=cfg.name, family=cfg.family, dtype=dtype,
              params=sum(t.numel() for t in tree_leaves(params)),
-             tokens=[8, 129], logits=int(full[:, 127].numel()),
+             tokens=[B, S + 1], max_len=max_len,
+             **{k: list(v.shape) for k, v in extra.items()},
+             logits=int(full[:, off + S - 1].numel()),
              held_within=TOL["float32"] if dtype == "float32" else None,
              **out)
         del full, lg_pre, lg_dec, cache
@@ -2761,6 +2814,135 @@ def phase_serve(dev, seed):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# families: the MoE, SSM, hybrid, VLM and enc-dec serving paths
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("granite_moe_1b", "grok1_314b", "falcon_mamba_7b",
+                "hymba_1p5b", "internvl2_2b", "whisper_medium")
+# the reference's prefill/decode check at each published width (grok-1's
+# 314B params do not fit one card: it runs at its smoke width only)
+FAMILY_CHECKS = (
+    ("granite_moe_1b", dict()),
+    ("falcon_mamba_7b", dict()),
+    # past the 1,024-token window: decode runs on a full ring
+    ("hymba_1p5b", dict(B=2, S=1280, max_len=1536)),
+    ("internvl2_2b", dict(patches=256, max_len=512)),
+    ("whisper_medium", dict(frames=1500, max_len=1536)))
+FAMILY_SERVED = ("granite_moe_1b", "falcon_mamba_7b", "hymba_1p5b")
+
+
+def families_moe_capacity(cfg, params, rng, dev):
+    """The capacity dispatch (the config's own impl and factor) against
+    the dense oracle at full width in fp32, on 8 x 129 tokens: reported,
+    since dropped pairs change the output by design."""
+    import torch
+    from repro_torch.models import model as M
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab, (8, 129),
+                                       dtype=np.int32), device=dev)
+    c = cfg.replace(dtype="float32")
+    cap = M.forward_lm(c, params, tok)
+    dense = M.forward_lm(c.replace(moe_impl="dense"), params, tok)
+    err = (cap - dense).abs()
+    emit("families_moe_capacity", arch=cfg.name,
+         capacity_factor=cfg.capacity_factor, moe_group=cfg.moe_group,
+         max_abs_err=err.max().item(),
+         over_reference_bound=int((err > 1e-2 + 2e-2 * dense.abs()).sum()),
+         logits=int(dense.numel()))
+
+
+def families_decode(cfg, params, rng, dev, extra, max_len, S=16, steps=32):
+    """prefill of 8 prompts of S tokens (after the patches, or over the
+    frames) in the config's bf16, then ``steps`` greedy decode_steps, each
+    timed on the host clock with its tokens brought to the host (what a
+    ServeEngine tick waits for)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import tree_map
+    p = M.cast_params(cfg, params)
+    extra = tree_map(lambda a: a.to(dev), extra)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab, (8, S),
+                                       dtype=np.int32), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, cache = M.prefill(cfg, p, {"tokens": tok, **extra}, max_len)
+    nxt = lg.argmax(-1).int().cpu()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        lg, cache = M.decode_step(cfg, p, cache, nxt)
+        nxt = lg.argmax(-1).int().cpu()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if not bool(torch.isfinite(lg).all()):
+        raise AssertionError(f"{cfg.name}: decode logits not finite")
+    emit("families_decode", arch=cfg.name, dtype=cfg.dtype, batch=8,
+         prompt_tokens=S, max_len=max_len,
+         **{k: list(v.shape) for k, v in extra.items()},
+         prefill_ms=prefill_ms, steps=steps,
+         step_p50_ms=float(np.percentile(ms, 50)),
+         step_p99_ms=float(np.percentile(ms, 99)),
+         tokens_per_s=8 * steps / (sum(ms) / 1e3))
+
+
+def family_full_width(arch, kw, rng, dev, seed):
+    """One published config, params from the seed (no checkpoint ships):
+    the prefill/decode check, then serving in bf16 (a ServeEngine at the
+    reference's defaults, 8 requests of 8-24 tokens and 32 new tokens
+    each; the vlm and the enc-dec through prefill and decode_step). Its
+    params count, and its peak device bytes above what the earlier
+    phases left allocated (reported beside it)."""
+    import torch
+    from repro_torch.configs.base import load_config
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.serve.engine import ServeEngine
+    kw = dict(kw)
+    frames, patches = kw.pop("frames", 16), kw.pop("patches", None)
+    cfg = load_config(arch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+    extra = lm_extra(cfg, rng, kw.get("B", 8), frames, patches)
+    if cfg.family == "moe":
+        families_moe_capacity(cfg, params, rng, dev)
+    serve_prefill_decode(cfg.replace(moe_impl="dense"), params, rng, dev,
+                         extra=extra, phase="families_prefill_decode", **kw)
+    if arch in FAMILY_SERVED:
+        eng = ServeEngine(cfg, params, slots=8, max_len=256, device=dev)
+        st = serve_stats(eng, 8, 32, *serve_requests(
+            eng, [rng.integers(0, cfg.vocab, int(n), dtype=np.int32)
+                  for n in rng.integers(8, 25, 8)], 32))
+        emit("families_serve", arch=arch, family=cfg.family,
+             dtype=cfg.dtype, slots=8, max_len=256,
+             **({"moe_impl": cfg.moe_impl} if cfg.family == "moe" else {}),
+             **st)
+        del eng
+    else:
+        families_decode(cfg, params, rng, dev,
+                        lm_extra(cfg, rng, 8, frames, patches),
+                        max_len=kw.get("max_len", 512))
+    emit("families_model", arch=arch, family=cfg.family,
+         params=sum(t.numel() for t in tree_leaves(params)),
+         peak_device_bytes=torch.cuda.max_memory_allocated() - before,
+         allocated_before_bytes=before, seconds=time.perf_counter() - t0)
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_families(dev, seed):
+    """The MoE, SSM, hybrid, VLM and enc-dec serving paths: card against
+    CPU on the six smoke configs, then each published config that fits
+    one card at full width (FAMILY_CHECKS), freed before the next. Data
+    from ``seed`` alone."""
+    phase_serve_parity(dev, seed, FAMILY_ARCHS, phase="families_parity")
+    rng = np.random.default_rng(seed)
+    for arch, kw in FAMILY_CHECKS:
+        family_full_width(arch, kw, rng, dev, seed)
+
+
 def main():
     import torch
     ap = argparse.ArgumentParser()
@@ -2851,6 +3033,8 @@ def main():
                               if kept})
     if "serve" in only:
         l2_rag_launches = phase_serve(dev, args.seed)
+    if "families" in only:
+        phase_families(dev, args.seed)
     emit("phases", ran=only, seconds=time.perf_counter() - t_run)
 
     if only == list(PHASES):

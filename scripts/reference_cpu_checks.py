@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Two checks of the JAX reference on the CPU that explain what the
-``serve`` phase of ``chip_smoke.py`` holds and what it only reports.
+"""Checks of the JAX reference on the CPU that explain what the ``serve``
+and ``families`` phases of ``chip_smoke.py`` hold and what they only
+report.
 
   prefill  SmolLM-135M at its published width in bf16 (params from
            PRNGKey(0), 2 x 129 tokens): the reference's own
@@ -8,6 +9,12 @@
            tokens and one decode step against forward_lm, with the
            reference's bound (rtol 2e-2, atol 1e-2); then the port on the
            same params on the CPU.
+  families the same check for granite-moe-1b (dense oracle),
+           falcon-mamba-7b, hymba-1.5b, internvl2-2b and whisper-medium
+           at their published depth and token, patch and frame counts
+           (2 x 129 tokens; hymba 2 x 1,281; 256 patches; 1,500 frames)
+           but narrowed to d_model 512 (8 heads of 64, vocab 8,192), in
+           fp32 and bf16, in the reference (jitted) and in the port.
   fresh    the reference's freshness test (tests/test_substrate.py:173)
            at engine seeds 0-7 on both packages with the reference's
            weights: whether document 7 retrieves itself, and the share
@@ -20,7 +27,7 @@
            documents, and the share of documents no graph row links to.
 
 Usage: PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/reference_cpu_checks.py
-       {prefill,fresh,rag} [--topics T]
+       {prefill,families,fresh,rag} [--topics T]
 It imports both packages, as the tests do; the port itself imports no JAX.
 """
 from __future__ import annotations
@@ -54,10 +61,10 @@ from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.serve import rag as TR  # noqa: E402
 
 
-def bound_report(full, pre, dec):
+def bound_report(full, pre, dec, last=128):
     out = {}
-    for a, b, what in ((full[:, 127], pre[:, 0], "prefill"),
-                       (full[:, 128], dec[:, 0], "decode")):
+    for a, b, what in ((full[:, last - 1], pre[:, 0], "prefill"),
+                       (full[:, last], dec[:, 0], "decode")):
         a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
         err = np.abs(a - b)
         out[what] = dict(max_abs_err=float(err.max()), over_reference_bound=int(
@@ -88,6 +95,66 @@ def check_prefill():
                       "dtype": tc.dtype, **bound_report(
                           full, pre.float().numpy(), dec.float().numpy())}),
           flush=True)
+
+
+NARROW = dict(d_model=512, n_heads=8, d_head=64, vocab=8192,
+              remat_policy="none")
+FAMILY_WIDTHS = {
+    "granite_moe_1b": dict(n_kv_heads=4, moe_impl="dense"),
+    "falcon_mamba_7b": dict(n_heads=0, d_head=0),
+    "hymba_1p5b": dict(n_kv_heads=2, d_ff=1536),
+    "internvl2_2b": dict(n_kv_heads=4, d_ff=2048),
+    "whisper_medium": dict(n_kv_heads=8, d_ff=2048)}
+
+
+def check_families(B=2):
+    f32 = lambda x: np.asarray(jnp.asarray(x).astype(jnp.float32))  # noqa
+    for arch, kw in FAMILY_WIDTHS.items():
+        jc = load_config(arch).replace(**{**NARROW, **kw})
+        S = 1280 if arch == "hymba_1p5b" else 128
+        rng = np.random.default_rng(0)
+        tok = rng.integers(0, jc.vocab, (B, S + 1)).astype(np.int32)
+        extra = {}
+        if jc.family == "vlm":
+            extra["patches"] = rng.normal(size=(B, jc.n_patches, jc.d_model))
+        if jc.family == "encdec":
+            extra["frames"] = rng.normal(size=(B, 1500, jc.d_model))
+        extra = {k: v.astype(np.float32) for k, v in extra.items()}
+        last = S + (jc.n_patches if jc.family == "vlm" else 0)
+        max_len = 1536 if arch in ("hymba_1p5b", "whisper_medium") else 512
+        jp = JM.init_params(jc, jax.random.PRNGKey(0))
+        tp = convert.model_params_from_arrays(jax.tree.map(np.asarray, jp),
+                                              "cpu")
+        for dtype in ("float32", "bfloat16"):
+            c = jc.replace(dtype=dtype)
+            je = {k: jnp.asarray(v) for k, v in extra.items()}
+            if c.family == "encdec":
+                full = jax.jit(lambda p, f, t: JM.forward_encdec(c, p, f, t))(
+                    jp, je["frames"], jnp.asarray(tok))
+            else:
+                full = jax.jit(lambda p, t, x: JM.forward_lm(c, p, t, x))(
+                    jp, jnp.asarray(tok), je.get("patches"))
+            pre, cache = jax.jit(lambda p, b: JM.prefill(c, p, b, max_len))(
+                jp, {"tokens": jnp.asarray(tok[:, :S]), **je})
+            dec, _ = jax.jit(lambda p, k, t: JM.decode_step(c, p, k, t))(
+                jp, cache, jnp.asarray(tok[:, S:]))
+            print(json.dumps({"check": "families", "arch": arch,
+                              "package": "reference (JAX, CPU)",
+                              "dtype": dtype, **bound_report(
+                                  f32(full), f32(pre), f32(dec), last)}),
+                  flush=True)
+            tcfg = t_load(arch).replace(**{**NARROW, **kw}, dtype=dtype)
+            te = {k: torch.as_tensor(v) for k, v in extra.items()}
+            t = torch.as_tensor(tok)
+            full = CS.lm_forward(tcfg, tp, t, te).float().numpy()
+            pre, cache = TM.prefill(tcfg, tp, {"tokens": t[:, :S], **te},
+                                    max_len)
+            dec, _ = TM.decode_step(tcfg, tp, cache, t[:, S:])
+            print(json.dumps({"check": "families", "arch": arch,
+                              "package": "port (torch, CPU)",
+                              "dtype": dtype, **bound_report(
+                                  full, pre.float().numpy(),
+                                  dec.float().numpy(), last)}), flush=True)
 
 
 def check_fresh(seeds=range(8)):
@@ -178,11 +245,14 @@ def check_rag(topics, per_topic=128, queries=512):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("check", choices=("prefill", "fresh", "rag"))
+    ap.add_argument("check", choices=("prefill", "families", "fresh",
+                                      "rag"))
     ap.add_argument("--topics", type=int, default=256)
     args = ap.parse_args()
     if args.check == "prefill":
         check_prefill()
+    elif args.check == "families":
+        check_families()
     elif args.check == "fresh":
         check_fresh()
     else:

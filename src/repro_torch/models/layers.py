@@ -177,6 +177,11 @@ def attention(q, k, v, *, causal=True, q_offset=0, window=0, kv_len=None,
     return block(q, q_offset)
 
 
+def cross_attention(q, k, v):
+    """Bidirectional cross-attention (whisper decoder -> encoder memory)."""
+    return attention(q, k, v, causal=False)
+
+
 def decode_attention(q, k_cache, v_cache, kv_len, *, window=0):
     """Single-token decode attention. q [B,1,Hq,D]; caches [B,T,Hkv,D]."""
     return attention(q, k_cache, v_cache, causal=False, window=window,

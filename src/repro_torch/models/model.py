@@ -1,35 +1,35 @@
-"""Model assembly, dense family (twin of ``repro.models.model``).
+"""Model assembly for every architecture family (twin of
+``repro.models.model``).
 
-The layer stack is a Python loop over the stacked layer params (the
-reference scans them). ``prefill`` returns a KV cache; ``decode_step``
-consumes it and writes the new token's keys and values into it IN PLACE
-(one write per lane; the reference returns a new cache, the port saves
-the copy of the whole cache per token), returning the cache dict with
-the new length.
+Families: dense | moe | ssm | hybrid | encdec | vlm.
 
-Only the dense family is ported (SmolLM, Qwen3, Phi-4-mini, DeepSeek);
-MoE, SSM, hybrid, enc-dec and VLM raise ``ValueError`` (ROADMAP A.12).
+Each layer stack is a Python loop over the stacked layer params (the
+reference scans them); the hybrid family runs its 3 global-attention
+layers and its sliding-window layers in layer order. ``prefill`` returns
+a KV/SSM cache; ``decode_step`` consumes it and writes the new token's
+keys, values and states into it IN PLACE (one write per lane; the
+reference returns a new cache, the port saves the copy of the whole cache
+per token), returning the cache dict with the new length.
+
+As the reference does, the layer params are cast to the compute dtype
+once per call (``cfg.cast_params_once``), so that the fp32 reads of the
+router and the SSM's dt/A/D weights see the values the reference sees.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import layers as Lyr
-from repro_torch.models.layers import (TSpec, attention, attn_out, attn_qkv,
-                                       attn_template, decode_attention,
-                                       embed_template, embed_tokens,
-                                       lm_logits, mlp_apply, mlp_template,
-                                       rms_norm)
+from repro_torch.models import mamba as M
+from repro_torch.models import moe as Moe
+from repro_torch.models.layers import (NEG, TSpec, attention, attn_out,
+                                       attn_qkv, attn_template,
+                                       decode_attention, embed_template,
+                                       embed_tokens, lm_logits, mlp_apply,
+                                       mlp_template, rms_norm)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
-
-
-def _dense_only(cfg):
-    if cfg.family != "dense":
-        raise ValueError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
-            "serves the dense family only (ROADMAP A.12)")
 
 
 def dtype_of(name) -> torch.dtype:
@@ -46,17 +46,88 @@ def _norm_t(cfg, stacked=None):
     return TSpec(L + (cfg.d_model,), LN + (None,), -1.0)
 
 
-def _dense_layer_template(cfg, n):
+def _dense_layer_template(cfg, n, with_moe=False):
     return {"attn": attn_template(cfg, stacked=n),
             "ln1": _norm_t(cfg, n),
             "ln2": _norm_t(cfg, n),
+            "mlp": Moe.moe_template(cfg, stacked=n) if with_moe
+            else mlp_template(cfg, stacked=n)}
+
+
+def _hybrid_layer_template(cfg, n):
+    return {"attn": attn_template(cfg, stacked=n),
+            "ssm": M.ssm_template(cfg, stacked=n),
+            "ln1": _norm_t(cfg, n),
+            "ln2": _norm_t(cfg, n),
+            "ln_attn": _norm_t(cfg, n),
+            "ln_ssm": _norm_t(cfg, n),
             "mlp": mlp_template(cfg, stacked=n)}
 
 
+def _encdec_layer_templates(cfg):
+    ne, nd = cfg.n_enc_layers, cfg.n_dec_layers
+    enc = {"attn": attn_template(cfg, stacked=ne),
+           "ln1": _norm_t(cfg, ne),
+           "ln2": _norm_t(cfg, ne),
+           "mlp": mlp_template(cfg, stacked=ne)}
+    dec = {"attn": attn_template(cfg, stacked=nd),
+           "xattn": attn_template(cfg, stacked=nd),
+           "ln1": _norm_t(cfg, nd),
+           "lnx": _norm_t(cfg, nd),
+           "ln2": _norm_t(cfg, nd),
+           "mlp": mlp_template(cfg, stacked=nd)}
+    return enc, dec
+
+
+def hybrid_split(cfg):
+    """(global_layer_ids, swa span sizes). Globals: first / middle / last."""
+    L = cfg.n_layers
+    g = sorted({0, L // 2, L - 1})
+    spans = []
+    prev = -1
+    for gi in g + [L]:
+        spans.append(gi - prev - 1)
+        prev = gi
+    return g, spans  # len(spans) == len(g)+1 (span before each global + tail)
+
+
+def _hybrid_order(cfg):
+    """The hybrid's layers in order, as ("global", i) or ("swa", j): the
+    reference's spans and globals, interleaved."""
+    g_ids, _ = hybrid_split(cfg)
+    order, j = [], 0
+    for layer in range(cfg.n_layers):
+        if layer in g_ids:
+            order.append(("global", g_ids.index(layer)))
+        else:
+            order.append(("swa", j))
+            j += 1
+    return order
+
+
 def build_templates(cfg):
-    _dense_only(cfg)
-    return {"tok": embed_template(cfg),
-            "layers": _dense_layer_template(cfg, cfg.n_layers)}
+    fam = cfg.family
+    if fam in ("dense", "vlm"):
+        return {"tok": embed_template(cfg),
+                "layers": _dense_layer_template(cfg, cfg.n_layers)}
+    if fam == "moe":
+        return {"tok": embed_template(cfg),
+                "layers": _dense_layer_template(cfg, cfg.n_layers,
+                                                with_moe=True)}
+    if fam == "ssm":
+        return {"tok": embed_template(cfg),
+                "layers": {"ssm": M.ssm_template(cfg, stacked=cfg.n_layers),
+                           "ln1": _norm_t(cfg, cfg.n_layers)}}
+    if fam == "hybrid":
+        g, _ = hybrid_split(cfg)
+        return {"tok": embed_template(cfg),
+                "global": _hybrid_layer_template(cfg, len(g)),
+                "swa": _hybrid_layer_template(cfg, cfg.n_layers - len(g))}
+    if fam == "encdec":
+        enc, dec = _encdec_layer_templates(cfg)
+        return {"tok": embed_template(cfg), "enc": enc, "dec": dec,
+                "enc_final_norm": _norm_t(cfg)}
+    raise ValueError(fam)
 
 
 def init_params(cfg, gen: torch.Generator, dtype=None):
@@ -68,15 +139,19 @@ def init_params(cfg, gen: torch.Generator, dtype=None):
 
 def cast_params(cfg, params, device=None):
     """The params on ``device`` with every fp32 leaf cast to ``cfg.dtype``,
-    once (the serving engines call it when they are built; the reference
-    casts its layer stack on every call). Every use of a param casts it
-    to the activation dtype, so the numbers are those of the fp32
-    params; a leaf already in place is not copied."""
+    once (the serving engines call it when they are built). Every use of
+    a param casts it to the activation dtype, and the fp32 reads (router,
+    dt/A/D) see the cast values, as the reference's do; a leaf already in
+    place is not copied."""
     dt = dtype_of(cfg.dtype)
     return Lyr.tree_map(
         lambda a: a.to(device=device or a.device,
                        dtype=dt if a.dtype == torch.float32 else a.dtype),
         params)
+
+
+def _cast_once(cfg, tree):
+    return cast_params(cfg, tree) if cfg.cast_params_once else tree
 
 
 def _layer(tree, i):
@@ -89,80 +164,286 @@ def _n_layers(layers) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Forward
+# Layer bodies (full-sequence forward; optionally emit KV/state for prefill)
 # ---------------------------------------------------------------------------
 
-def dense_layer_fwd(cfg, p, x, positions, *, collect=False):
+def dense_layer_fwd(cfg, p, x, positions, *, window=0, collect=False):
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = attn_qkv(p["attn"], h, cfg, positions)
+    o = attention(q, k, v, causal=True, window=window, chunk=cfg.attn_chunk)
+    x = x + attn_out(p["attn"], o, cfg)
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if cfg.family == "moe" or "router" in p["mlp"]:
+        x = x + Moe.moe_apply(p["mlp"], h, cfg)
+    else:
+        x = x + mlp_apply(p["mlp"], h)
+    return (x, (k, v)) if collect else (x, None)
+
+
+def ssm_layer_fwd(cfg, p, x, *, collect=False):
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    y, state = M.mamba_mixer(p["ssm"], h, cfg)
+    return (x + y, state) if collect else (x + y, None)
+
+
+def hybrid_layer_fwd(cfg, p, x, positions, *, window, collect=False):
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = attn_qkv(p["attn"], h, cfg, positions)
+    o = attention(q, k, v, causal=True, window=window, chunk=cfg.attn_chunk)
+    ao = attn_out(p["attn"], o, cfg)
+    so, state = M.mamba_mixer(p["ssm"], h, cfg)
+    fused = 0.5 * (rms_norm(ao, p["ln_attn"], cfg.norm_eps)
+                   + rms_norm(so, p["ln_ssm"], cfg.norm_eps))
+    x = x + fused
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    x = x + mlp_apply(p["mlp"], h2)
+    return (x, ((k, v), state)) if collect else (x, None)
+
+
+def enc_layer_fwd(cfg, p, x, positions):
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = attn_qkv(p["attn"], h, cfg, positions)
+    o = attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
+    x = x + attn_out(p["attn"], o, cfg)
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + mlp_apply(p["mlp"], h)
+
+
+def dec_layer_fwd(cfg, p, x, memory, positions, mem_positions, *,
+                  collect=False):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = attn_qkv(p["attn"], h, cfg, positions)
     o = attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
     x = x + attn_out(p["attn"], o, cfg)
+    h = rms_norm(x, p["lnx"], cfg.norm_eps)
+    qx, _, _ = attn_qkv(p["xattn"], h, cfg, positions)
+    # cross KV come from the encoder memory, RoPE'd at its own positions
+    _, mk, mv = attn_qkv(p["xattn"], memory, cfg, mem_positions)
+    ox = attention(qx, mk, mv, causal=False, chunk=cfg.attn_chunk)
+    x = x + attn_out(p["xattn"], ox, cfg)
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     x = x + mlp_apply(p["mlp"], h)
-    return (x, (k, v)) if collect else (x, None)
+    return (x, (k, v, mk, mv)) if collect else (x, None)
+
+
+def _stack(parts):
+    """A list of per-layer tuples of tensors -> a tuple of stacked
+    tensors (layer dim 0)."""
+    return tuple(torch.stack(t) for t in zip(*parts))
 
 
 def _lm_trunk(cfg, params, emb, positions, collect=False):
-    """Run the layer stack on embeddings. Returns (hidden, (k, v)) with k,
-    v stacked [L, B, S, Hkv, Dh] when ``collect``, else (hidden, None)."""
-    _dense_only(cfg)
-    layers = params["layers"]
-    x, ks, vs = emb, [], []
-    for i in range(_n_layers(layers)):
-        x, kv = dense_layer_fwd(cfg, _layer(layers, i), x, positions,
-                                collect=collect)
-        if collect:
-            ks.append(kv[0])
-            vs.append(kv[1])
-    return x, ((torch.stack(ks), torch.stack(vs)) if collect else None)
+    """Run the layer stack on embeddings. Returns (hidden, cache parts):
+    with ``collect``, (k, v) stacked [L, B, S, Hkv, Dh] for dense, moe and
+    vlm; (h, conv) stacked for ssm; for hybrid, per-layer lists of
+    ((k, v), (h, conv)) for the global and the window layers."""
+    fam = cfg.family
+    if fam in ("dense", "moe", "vlm"):
+        layers = _cast_once(cfg, params["layers"])
+        x, parts = emb, []
+        for i in range(_n_layers(layers)):
+            x, kv = dense_layer_fwd(cfg, _layer(layers, i), x, positions,
+                                    collect=collect)
+            parts.append(kv)
+        return x, (_stack(parts) if collect else None)
+
+    if fam == "ssm":
+        layers = _cast_once(cfg, params["layers"])
+        x, parts = emb, []
+        for i in range(_n_layers(layers)):
+            x, st = ssm_layer_fwd(cfg, _layer(layers, i), x, collect=collect)
+            parts.append(st)
+        return x, (_stack(parts) if collect else None)
+
+    if fam == "hybrid":
+        stacks = {"global": _cast_once(cfg, params["global"]),
+                  "swa": _cast_once(cfg, params["swa"])}
+        x, caches = emb, {"global": [], "swa": []}
+        for kind, i in _hybrid_order(cfg):
+            x, c = hybrid_layer_fwd(
+                cfg, _layer(stacks[kind], i), x, positions,
+                window=cfg.swa_window if kind == "swa" else 0,
+                collect=collect)
+            caches[kind].append(c)
+        return x, ((caches["global"], caches["swa"]) if collect else None)
+
+    raise ValueError(fam)
 
 
-def forward_lm(cfg, params, tokens):
-    """Full-sequence forward. tokens [B,S] -> logits [B,S,padded_vocab]."""
-    _dense_only(cfg)
+def forward_lm(cfg, params, tokens, patches=None):
+    """Full-sequence forward for the decoder-only families. tokens [B,S]
+    (and, for vlm, patch embeddings [B,P,D] placed before them) -> logits
+    [B,P+S,padded_vocab]."""
     dt = dtype_of(cfg.dtype)
     dev = params["tok"]["embed"].device
-    tokens = torch.as_tensor(tokens, device=dev)
-    emb = embed_tokens(params["tok"], tokens, dt)
+    emb = embed_tokens(params["tok"], torch.as_tensor(tokens, device=dev),
+                       dt)
+    if cfg.family == "vlm":
+        if patches is None:
+            raise ValueError(f"{cfg.name}: the vlm forward needs patches")
+        emb = torch.cat([torch.as_tensor(patches, device=dev).to(dt), emb],
+                        dim=1)
     positions = torch.arange(emb.shape[1], device=dev)
     x, _ = _lm_trunk(cfg, params, emb, positions)
     x = rms_norm(x, params["tok"]["final_norm"], cfg.norm_eps)
     return lm_logits(params["tok"], x, cfg)
 
 
+def _encode(cfg, params, frames):
+    """The encoder over frame embeddings [B,T,D]. Returns (memory,
+    memory positions)."""
+    dt = dtype_of(cfg.dtype)
+    dev = params["tok"]["embed"].device
+    mem = torch.as_tensor(frames, device=dev).to(dt)
+    mem_pos = torch.arange(mem.shape[1], device=dev)
+    enc = _cast_once(cfg, params["enc"])
+    for i in range(_n_layers(enc)):
+        mem = enc_layer_fwd(cfg, _layer(enc, i), mem, mem_pos)
+    return rms_norm(mem, params["enc_final_norm"], cfg.norm_eps), mem_pos
+
+
+def _decode_trunk(cfg, params, mem, mem_pos, tokens, collect=False):
+    """The decoder over the encoder memory. Returns (hidden, stacked
+    (k, v, mk, mv) with ``collect``)."""
+    dev = params["tok"]["embed"].device
+    x = embed_tokens(params["tok"], torch.as_tensor(tokens, device=dev),
+                     dtype_of(cfg.dtype))
+    pos = torch.arange(x.shape[1], device=dev)
+    dec = _cast_once(cfg, params["dec"])
+    parts = []
+    for i in range(_n_layers(dec)):
+        x, kv = dec_layer_fwd(cfg, _layer(dec, i), x, mem, pos, mem_pos,
+                              collect=collect)
+        parts.append(kv)
+    return x, (_stack(parts) if collect else None)
+
+
+def forward_encdec(cfg, params, frames, tokens):
+    """Encoder over frames [B,T,D], decoder over tokens [B,S] -> logits
+    [B,S,padded_vocab]."""
+    mem, mem_pos = _encode(cfg, params, frames)
+    x, _ = _decode_trunk(cfg, params, mem, mem_pos, tokens)
+    x = rms_norm(x, params["tok"]["final_norm"], cfg.norm_eps)
+    return lm_logits(params["tok"], x, cfg)
+
+
 # ---------------------------------------------------------------------------
-# KV cache, prefill, decode
+# KV / state caches
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg, batch, max_len, dtype=None, device="cuda"):
-    """Zero decode cache: k, v [L, B, max_len, Hkv, Dh] and len (int32
-    scalar, or [B] per lane)."""
-    _dense_only(cfg)
+    """Zero decode cache (the reference's fields and shapes); ``len`` is
+    an int32 scalar, or [B] per lane."""
     dt = dtype_of(dtype or cfg.dtype)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device),
-            "len": torch.zeros((), dtype=torch.int32, device=device)}
+    Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
+    fam = cfg.family
 
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def kv(n, T):
+        return zeros(n, batch, T, Hkv, Dh), zeros(n, batch, T, Hkv, Dh)
+
+    def ssm(n):
+        return (zeros(n, batch, cfg.d_inner, cfg.d_state,
+                      dtype=torch.float32),
+                zeros(n, batch, cfg.d_conv - 1, cfg.d_inner))
+
+    length = zeros(dtype=torch.int32)
+    if fam in ("dense", "moe", "vlm"):
+        k, v = kv(cfg.n_layers, max_len)
+        return {"k": k, "v": v, "len": length}
+    if fam == "ssm":
+        h, conv = ssm(cfg.n_layers)
+        return {"h": h, "conv": conv, "len": length}
+    if fam == "hybrid":
+        g_ids, _ = hybrid_split(cfg)
+        nG, nW = len(g_ids), cfg.n_layers - len(g_ids)
+        W = min(cfg.swa_window, max_len)
+        kg, vg = kv(nG, max_len)
+        kw, vw = kv(nW, W)
+        hg, convg = ssm(nG)
+        hw, convw = ssm(nW)
+        return {"kg": kg, "vg": vg, "kw": kw, "vw": vw,
+                "wpos": torch.full((nW, batch, W), -1, dtype=torch.int32,
+                                   device=device),
+                "hg": hg, "convg": convg, "hw": hw, "convw": convw,
+                "len": length}
+    if fam == "encdec":
+        k, v = kv(cfg.n_dec_layers, min(max_len, 4096))
+        ck, cv = kv(cfg.n_dec_layers, max_len)
+        return {"k": k, "v": v, "ck": ck, "cv": cv,
+                "enc_len": zeros(dtype=torch.int32), "len": length}
+    raise ValueError(fam)
+
+
+# ---------------------------------------------------------------------------
+# Prefill
+# ---------------------------------------------------------------------------
 
 def prefill(cfg, params, batch_inputs, max_len):
-    """Full-sequence forward that fills a decode cache. Returns (logits of
-    the last position [B,1,V], cache)."""
-    _dense_only(cfg)
-    dt = dtype_of(cfg.dtype)
+    """Full-sequence forward that fills a decode cache. ``batch_inputs``
+    holds ``tokens`` (and ``patches`` for vlm, ``frames`` for encdec).
+    Returns (logits of the last position [B,1,V], cache)."""
+    fam = cfg.family
     dev = params["tok"]["embed"].device
     tokens = torch.as_tensor(batch_inputs["tokens"], device=dev)
     cache = init_cache(cfg, tokens.shape[0], max_len, device=dev)
+
+    if fam == "encdec":
+        mem, mem_pos = _encode(cfg, params, batch_inputs["frames"])
+        x, (k, v, ck, cv) = _decode_trunk(cfg, params, mem, mem_pos, tokens,
+                                          collect=True)
+        S, T = tokens.shape[1], ck.shape[2]
+        cache["k"][:, :, :S] = k
+        cache["v"][:, :, :S] = v
+        cache["ck"][:, :, :T] = ck
+        cache["cv"][:, :, :T] = cv
+        cache["enc_len"] = torch.tensor(T, dtype=torch.int32, device=dev)
+        cache["len"] = torch.tensor(S, dtype=torch.int32, device=dev)
+        x = rms_norm(x, params["tok"]["final_norm"], cfg.norm_eps)
+        return lm_logits(params["tok"], x[:, -1:], cfg), cache
+
+    dt = dtype_of(cfg.dtype)
     emb = embed_tokens(params["tok"], tokens, dt)
+    if fam == "vlm" and batch_inputs.get("patches") is not None:
+        emb = torch.cat([torch.as_tensor(batch_inputs["patches"],
+                                         device=dev).to(dt), emb], dim=1)
     S = emb.shape[1]
-    x, (k, v) = _lm_trunk(cfg, params, emb, torch.arange(S, device=dev),
-                          collect=True)
-    cache["k"][:, :, :S] = k
-    cache["v"][:, :, :S] = v
+    x, collected = _lm_trunk(cfg, params, emb, torch.arange(S, device=dev),
+                             collect=True)
+
+    if fam in ("dense", "moe", "vlm"):
+        k, v = collected
+        cache["k"][:, :, :S] = k
+        cache["v"][:, :, :S] = v
+    elif fam == "ssm":
+        cache["h"], cache["conv"] = collected
+    elif fam == "hybrid":
+        caches_g, caches_w = collected
+        for i, ((k, v), (h, conv)) in enumerate(caches_g):
+            cache["kg"][i, :, :S] = k
+            cache["vg"][i, :, :S] = v
+            cache["hg"][i] = h
+            cache["convg"][i] = conv
+        # the ring keeps the last W positions, each at slot pos % W
+        W = cache["kw"].shape[2]
+        pos = torch.arange(max(0, S - W), S, device=dev)
+        slots = pos % W
+        for j, ((k, v), (h, conv)) in enumerate(caches_w):
+            cache["kw"][j][:, slots] = k[:, pos]
+            cache["vw"][j][:, slots] = v[:, pos]
+            cache["wpos"][j][:, slots] = pos.to(torch.int32)
+            cache["hw"][j] = h
+            cache["convw"][j] = conv
     cache["len"] = torch.tensor(S, dtype=torch.int32, device=dev)
     x = rms_norm(x, params["tok"]["final_norm"], cfg.norm_eps)
     return lm_logits(params["tok"], x[:, -1:], cfg), cache
 
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
 
 def _cache_write(cache, val, pos):
     """Write one token into ``cache`` [B, T, ...] in place at position
@@ -177,36 +458,104 @@ def _cache_write(cache, val, pos):
     return cache
 
 
-def _decode_attn_layer(cfg, p, x, k_cache, v_cache, pos, kv_len):
-    """One decode attention sublayer (full attention; the sliding-window
-    branch belongs to the hybrid family). ``pos`` is a scalar or a
-    per-lane [B] vector. Returns (attn_out, k_cache, v_cache)."""
+def _decode_attn_layer(cfg, p, x, k_cache, v_cache, pos, kv_len, *,
+                       window=0, wpos=None):
+    """One decode attention sublayer. ``pos`` is a scalar or a per-lane
+    [B] vector. With ``window`` and ``wpos`` the caches are a ring of W
+    slots: the token goes to slot pos % W, ``wpos`` records its position,
+    and every slot that holds a position (wpos >= 0) is attended. Returns
+    the attention output; the caches and ``wpos`` are written in place."""
     positions = pos[None, None] if pos.ndim == 0 else pos[:, None]
     q, k, v = attn_qkv(p["attn"], x, cfg, positions)
-    k_cache = _cache_write(k_cache, k[:, 0], pos)
-    v_cache = _cache_write(v_cache, v[:, 0], pos)
-    return decode_attention(q, k_cache, v_cache, kv_len), k_cache, v_cache
+    if window and wpos is not None:
+        slot = pos % k_cache.shape[1]
+        _cache_write(k_cache, k[:, 0], slot)
+        _cache_write(v_cache, v[:, 0], slot)
+        _cache_write(wpos, pos.to(torch.int32).expand(wpos.shape[0]), slot)
+        bias = torch.where(wpos >= 0, 0.0, NEG)[:, None, None, :].float()
+        n_rep = cfg.n_heads // cfg.n_kv_heads
+        return Lyr._attn_core(q, Lyr.repeat_kv(k_cache, n_rep),
+                              Lyr.repeat_kv(v_cache, n_rep), bias)
+    _cache_write(k_cache, k[:, 0], pos)
+    _cache_write(v_cache, v[:, 0], pos)
+    return decode_attention(q, k_cache, v_cache, kv_len)
 
 
 def decode_step(cfg, params, cache, token):
     """One-token decode. token [B,1] int. Returns (logits [B,1,V], cache)
     with the caches written in place and ``len`` advanced by one."""
-    _dense_only(cfg)
     dt = dtype_of(cfg.dtype)
+    fam = cfg.family
     dev = params["tok"]["embed"].device
     pos = torch.as_tensor(cache["len"], device=dev)
     kv_len = pos + 1
     x = embed_tokens(params["tok"], torch.as_tensor(token, device=dev), dt)
-    layers = params["layers"]
-    kall, vall = cache["k"], cache["v"]
-    for i in range(_n_layers(layers)):
-        p = _layer(layers, i)
-        h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        o, _, _ = _decode_attn_layer(cfg, p, h, kall[i], vall[i], pos,
-                                     kv_len)
-        x = x + attn_out(p["attn"], o, cfg)
-        h = rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + mlp_apply(p["mlp"], h)
+
+    if fam in ("dense", "moe", "vlm"):
+        layers = _cast_once(cfg, params["layers"])
+        for i in range(_n_layers(layers)):
+            p = _layer(layers, i)
+            h = rms_norm(x, p["ln1"], cfg.norm_eps)
+            o = _decode_attn_layer(cfg, p, h, cache["k"][i], cache["v"][i],
+                                   pos, kv_len)
+            x = x + attn_out(p["attn"], o, cfg)
+            h = rms_norm(x, p["ln2"], cfg.norm_eps)
+            if "router" in p["mlp"]:
+                x = x + Moe.moe_apply(p["mlp"], h, cfg.replace(moe_group=1))
+            else:
+                x = x + mlp_apply(p["mlp"], h)
+
+    elif fam == "ssm":
+        layers = _cast_once(cfg, params["layers"])
+        for i in range(_n_layers(layers)):
+            p = _layer(layers, i)
+            y, (h1, c1) = M.mamba_step(
+                p["ssm"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
+                (cache["h"][i], cache["conv"][i]))
+            x = x + y
+            cache["h"][i] = h1
+            cache["conv"][i] = c1
+
+    elif fam == "hybrid":
+        stacks = {"global": _cast_once(cfg, params["global"]),
+                  "swa": _cast_once(cfg, params["swa"])}
+        for kind, i in _hybrid_order(cfg):
+            p = _layer(stacks[kind], i)
+            sfx = "g" if kind == "global" else "w"
+            hh = rms_norm(x, p["ln1"], cfg.norm_eps)
+            o = _decode_attn_layer(
+                cfg, p, hh, cache["k" + sfx][i], cache["v" + sfx][i], pos,
+                kv_len, window=cfg.swa_window if kind == "swa" else 0,
+                wpos=cache["wpos"][i] if kind == "swa" else None)
+            ao = attn_out(p["attn"], o, cfg)
+            so, (h1, c1) = M.mamba_step(
+                p["ssm"], hh, cfg, (cache["h" + sfx][i],
+                                    cache["conv" + sfx][i]))
+            cache["h" + sfx][i] = h1
+            cache["conv" + sfx][i] = c1
+            fused = 0.5 * (rms_norm(ao, p["ln_attn"], cfg.norm_eps)
+                           + rms_norm(so, p["ln_ssm"], cfg.norm_eps))
+            x = x + fused
+            x = x + mlp_apply(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
+
+    elif fam == "encdec":
+        dec = _cast_once(cfg, params["dec"])
+        positions = pos[None, None] if pos.ndim == 0 else pos[:, None]
+        for i in range(_n_layers(dec)):
+            p = _layer(dec, i)
+            h = rms_norm(x, p["ln1"], cfg.norm_eps)
+            o = _decode_attn_layer(cfg, p, h, cache["k"][i], cache["v"][i],
+                                   pos, kv_len)
+            x = x + attn_out(p["attn"], o, cfg)
+            h = rms_norm(x, p["lnx"], cfg.norm_eps)
+            qx, _, _ = attn_qkv(p["xattn"], h, cfg, positions)
+            ox = decode_attention(qx, cache["ck"][i], cache["cv"][i],
+                                  cache["enc_len"])
+            x = x + attn_out(p["xattn"], ox, cfg)
+            x = x + mlp_apply(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
+    else:
+        raise ValueError(fam)
+
     cache = dict(cache, len=kv_len)
     x = rms_norm(x, params["tok"]["final_norm"], cfg.norm_eps)
     return lm_logits(params["tok"], x, cfg), cache

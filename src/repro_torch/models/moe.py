@@ -1,0 +1,122 @@
+"""Mixture-of-Experts FFN (twin of ``repro.models.moe``).
+
+Two dispatch implementations:
+
+* ``capacity`` — GShard/Switch-style grouped capacity dispatch. Tokens
+  over an expert's capacity are dropped (the residual passes them
+  through). The reference builds one-hot dispatch and combine tensors
+  and contracts them; the port computes each kept (token, expert) pair's
+  place in the expert's buffer and moves the token there by index,
+  which fills the same ``[G, E, C, D]`` buffers.
+* ``dense`` — computes every expert for every token and combines with
+  the router weights. Exact (no dropping); the correctness oracle.
+
+Top-k routing goes through ``core.topk.largest_k``: ties take the lower
+expert index, as ``lax.top_k`` does.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.topk import largest_k
+from repro_torch.models.layers import TSpec
+
+
+def moe_template(cfg, stacked=None):
+    D, Fd, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    L = (stacked,) if stacked else ()
+    LN = (None,) if stacked else ()
+    return {
+        "router": TSpec(L + (D, E), LN + (None, None), 0.02),
+        "w_gate": TSpec(L + (E, D, Fd), LN + ("expert", "fsdp", "tensor"),
+                        0.02),
+        "w_up": TSpec(L + (E, D, Fd), LN + ("expert", "fsdp", "tensor"),
+                      0.02),
+        "w_down": TSpec(L + (E, Fd, D), LN + ("expert", "tensor", "fsdp"),
+                        0.02 / math.sqrt(2 * cfg.n_layers)),
+    }
+
+
+def _router_probs(p, x):
+    logits = x.float() @ p["router"].float()
+    return torch.softmax(logits, dim=-1)              # [..., E] fp32
+
+
+def _expert_ffn(p, xe, dt):
+    """xe [..., E, C, D] per-expert token blocks -> same shape."""
+    wg, wu, wd = (p[k].to(dt) for k in ("w_gate", "w_up", "w_down"))
+    return (F.silu(xe @ wg) * (xe @ wu)) @ wd
+
+
+def moe_apply_dense(p, x, cfg):
+    """Exact dense-compute MoE (oracle)."""
+    dt = x.dtype
+    probs = _router_probs(p, x)                       # [B,S,E]
+    topv, topi = largest_k(probs, cfg.top_k)
+    gates = torch.zeros_like(probs).scatter(-1, topi, topv)
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    h = torch.einsum("bsd,edf->bsef", x, p["w_gate"].to(dt))
+    u = torch.einsum("bsd,edf->bsef", x, p["w_up"].to(dt))
+    y = torch.einsum("bsef,efd->bsed", F.silu(h) * u, p["w_down"].to(dt))
+    return torch.einsum("bsed,bse->bsd", y, gates.to(dt))
+
+
+def capacity_slots(topi, E, C):
+    """Each routing slot's place in its expert's buffer. topi [G, g, K]
+    expert ids; returns (pos, keep), both [G, g, K]: ``pos`` counts the
+    earlier claims on the same expert in slot-major order (slot 0 of every
+    token before slot 1, GShard's priority), and a claim is kept while
+    ``pos < C``."""
+    G, g, K = topi.shape
+    sel = F.one_hot(topi.transpose(1, 2).reshape(G, K * g), E)  # [G,K*g,E]
+    before = (sel.cumsum(1) - sel).gather(
+        -1, topi.transpose(1, 2).reshape(G, K * g, 1))[..., 0]
+    pos = before.reshape(G, K, g).transpose(1, 2)
+    return pos, pos < C
+
+
+def moe_apply_capacity(p, x, cfg):
+    """GShard grouped capacity dispatch.
+
+    x [B,S,D] -> tokens in [G, g, D] (g the largest divisor of B*S not
+    above ``moe_group``); per group each expert takes at most C =
+    min(ceil(g * top_k / E * capacity_factor), g) tokens.
+    """
+    dt = x.dtype
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    T = B * S
+    g = min(cfg.moe_group, T)
+    while T % g:          # largest divisor of T not exceeding moe_group
+        g -= 1
+    G = T // g
+    C = min(int(math.ceil(g * K / E * cfg.capacity_factor)), g)
+
+    xt = x.reshape(G, g, D)
+    probs = _router_probs(p, xt)                      # [G,g,E] fp32
+    topv, topi = largest_k(probs, K)                  # [G,g,K]
+    topv = topv / topv.sum(-1, keepdim=True).clamp_min(1e-9)
+    pos, keep = capacity_slots(topi, E, C)
+
+    # a token routes to each expert at most once, so every kept
+    # (group, expert, place) is written once
+    gi, si, ki = keep.nonzero(as_tuple=True)
+    ei, ci = topi[gi, si, ki], pos[gi, si, ki]
+    xe = x.new_zeros(G, E, C, D)
+    xe[gi, ei, ci] = xt[gi, si]
+    ye = _expert_ffn(p, xe, dt)                       # [G,E,C,D]
+    # combine in fp32 (a product of two dt values is exact there), one
+    # rounding to dt at the end
+    w = topv.to(dt).float() * keep
+    yk = ye.new_zeros(G, g, K, D, dtype=torch.float32)
+    yk[gi, si, ki] = ye[gi, ei, ci].float()
+    return (w[..., None] * yk).sum(2).to(dt).reshape(B, S, D)
+
+
+def moe_apply(p, x, cfg):
+    if cfg.moe_impl == "dense":
+        return moe_apply_dense(p, x, cfg)
+    return moe_apply_capacity(p, x, cfg)

@@ -39,7 +39,7 @@ class Request:
 
 
 class ServeEngine:
-    """Batched incremental decoding over the dense model family."""
+    """Batched incremental decoding over every model family."""
 
     def __init__(self, cfg, params, *, slots=8, max_len=256,
                  straggler_factor=8.0, max_retries=1, device="cuda"):

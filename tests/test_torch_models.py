@@ -88,7 +88,7 @@ def test_shapes_and_svfusion_configs_equal_the_reference():
         tuple(JDeep.smoke_config()["search"])
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", JCfg.ARCH_IDS)
 def test_full_width_templates_match_the_reference_shapes(arch):
     """Template shapes of the published configs, without allocating."""
     got = TL.tree_leaves(TM.build_templates(TCfg.load_config(arch)))
@@ -100,15 +100,24 @@ def test_full_width_templates_match_the_reference_shapes(arch):
                                                 for t in jt]
 
 
-@pytest.mark.parametrize("arch", OTHER)
-def test_other_families_raise(arch):
-    cfg = TCfg.load_smoke_config(arch)
+def test_unknown_family_raises():
+    """An unknown family raises ``ValueError(family)`` as the reference
+    does; so does ``forward_lm`` on the enc-dec family, which has its own
+    forward."""
+    cfg = TCfg.load_smoke_config("smollm_135m").replace(family="bogus")
+    params = {"tok": {"embed": torch.zeros(cfg.padded_vocab, cfg.d_model),
+                      "final_norm": torch.ones(cfg.d_model)}}
+    tok = torch.zeros(1, 2, dtype=torch.int32)
     for call in (lambda: TM.build_templates(cfg),
                  lambda: TM.init_cache(cfg, 2, 8, device="cpu"),
-                 lambda: TM.forward_lm(cfg, {"tok": {"embed": torch.zeros(
-                     1)}}, torch.zeros(1, 2, dtype=torch.int32))):
-        with pytest.raises(ValueError, match="ROADMAP A.12"):
+                 lambda: TM.forward_lm(cfg, params, tok),
+                 lambda: TM.prefill(cfg, params, {"tokens": tok}, 8),
+                 lambda: TM.decode_step(cfg, params, {"len": torch.tensor(
+                     0)}, tok[:, :1])):
+        with pytest.raises(ValueError, match="^bogus$"):
             call()
+    with pytest.raises(ValueError, match="^encdec$"):
+        TM.forward_lm(cfg.replace(family="encdec"), params, tok)
 
 
 def test_init_from_template_scale_rules():
@@ -299,21 +308,165 @@ def test_scalar_decode_and_chunked_forward_match_the_reference(dense):
     assert tcache["len"].ndim == 0 and int(tcache["len"]) == 9
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", JCfg.ARCH_IDS)
 def test_prefill_decode_parity(arch):
     """The reference's own check (``tests/test_models.py``), on the port
-    alone, at the configs' bf16 compute."""
+    alone, at the configs' bf16 compute; MoE with the dense oracle, as
+    the reference's test does."""
     cfg = TCfg.load_smoke_config(arch)
+    if cfg.family == "moe":
+        cfg = cfg.replace(moe_impl="dense")
     params = TM.init_params(cfg, torch.Generator().manual_seed(0))
     B, S = 2, 32
-    tokens = torch.as_tensor(np.random.default_rng(0).integers(
-        0, cfg.vocab, (B, S + 1)).astype(np.int32))
-    full = TM.forward_lm(cfg, params, tokens)
-    lg_pre, cache = TM.prefill(cfg, params, {"tokens": tokens[:, :S]},
-                               max_len=64)
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S + 1)).astype(
+        np.int32))
+    extra = {k: torch.as_tensor(v) for k, v in family_inputs(
+        cfg, rng, B)[1].items()}
+    if cfg.family == "encdec":
+        full = TM.forward_encdec(cfg, params, extra["frames"], tokens)
+    else:
+        full = TM.forward_lm(cfg, params, tokens, extra.get("patches"))
+    lg_pre, cache = TM.prefill(cfg, params, {"tokens": tokens[:, :S],
+                                             **extra}, max_len=64)
     lg_dec, cache2 = TM.decode_step(cfg, params, cache, tokens[:, S:S + 1])
-    np.testing.assert_allclose(t2n(full[:, S - 1]), t2n(lg_pre[:, 0]),
+    off = cfg.n_patches if cfg.family == "vlm" else 0
+    np.testing.assert_allclose(t2n(full[:, off + S - 1]), t2n(lg_pre[:, 0]),
                                rtol=2e-2, atol=1e-2)
-    np.testing.assert_allclose(t2n(full[:, S]), t2n(lg_dec[:, 0]),
+    np.testing.assert_allclose(t2n(full[:, off + S]), t2n(lg_dec[:, 0]),
                                rtol=2e-2, atol=1e-2)
-    assert int(cache2["len"]) == S + 1
+    assert int(cache2["len"]) == S + 1 + off
+
+
+# ---------------------------------------------------------------------------
+# the other families: moe, ssm, hybrid, vlm, encdec
+# ---------------------------------------------------------------------------
+
+MAX_LEN = 32
+LANES = np.array([24, 5, 40], np.int32)   # one lane past max_len (clamped)
+EXACT = ("wpos", "len", "enc_len")
+
+
+def family_inputs(cfg, rng, B=3):
+    """24 positions of prefill (vlm: 8 patches + 16 tokens; encdec: 16
+    frames of memory and 24 tokens), then 2 decode tokens. The hybrid's
+    smoke window is 16, so its prefill and decode run past it."""
+    S = 24 - cfg.n_patches if cfg.family == "vlm" else 24
+    tok = rng.integers(0, cfg.vocab, (B, S + 2)).astype(np.int32)
+    extra = {}
+    if cfg.family == "vlm":
+        extra["patches"] = rng.normal(
+            size=(B, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        extra["frames"] = rng.normal(size=(B, 16, cfg.d_model)).astype(
+            np.float32)
+    return tok, extra
+
+
+@pytest.fixture(scope="module", params=OTHER)
+def family(request):
+    """The reference's forward, prefill and decodes (jitted), and the
+    port's, on one smoke config in fp32 with the reference's params.
+    Decodes run from one prefill's cache, scalar and per lane (``LANES``),
+    two steps each."""
+    arch = request.param
+    jc = JCfg.load_smoke_config(arch).replace(dtype="float32")
+    tc = TCfg.load_smoke_config(arch).replace(dtype="float32")
+    jp = j_params(jc, 7)
+    tp = t_params(jp)
+    tok, extra = family_inputs(jc, np.random.default_rng(8))
+    S = tok.shape[1] - 2
+    jex = {k: jnp.asarray(v) for k, v in extra.items()}
+    tex = {k: torch.as_tensor(v) for k, v in extra.items()}
+    if jc.family == "encdec":
+        jfwd = jax.jit(lambda p, f, t: JM.forward_encdec(jc, p, f, t))(
+            jp, jex["frames"], jnp.asarray(tok))
+        tfwd = TM.forward_encdec(tc, tp, tex["frames"], torch.as_tensor(tok))
+    else:
+        jfwd = jax.jit(lambda p, t, x: JM.forward_lm(jc, p, t, x))(
+            jp, jnp.asarray(tok), jex.get("patches"))
+        tfwd = TM.forward_lm(tc, tp, torch.as_tensor(tok), tex.get("patches"))
+    jpre = jax.jit(lambda p, b: JM.prefill(jc, p, b, MAX_LEN))(
+        jp, {"tokens": jnp.asarray(tok[:, :S]), **jex})
+    tpre = TM.prefill(tc, tp, {"tokens": torch.as_tensor(tok[:, :S]), **tex},
+                      MAX_LEN)
+    jdec = jax.jit(lambda p, c, t: JM.decode_step(jc, p, c, t))
+    out = {"fwd": (tfwd, jfwd), "prefill": (tpre, jpre)}
+    for mode in ("scalar", "lanes"):
+        jcache = jpre[1]
+        tcache = {k: v.clone() for k, v in tpre[1].items()}
+        if mode == "lanes":
+            jcache = dict(jcache, len=jnp.asarray(LANES))
+            tcache = dict(tcache, len=torch.as_tensor(LANES))
+        steps = []
+        for s in (S, S + 1):
+            jl, jcache = jdec(jp, jcache, jnp.asarray(tok[:, s:s + 1]))
+            tl, tcache = TM.decode_step(tc, tp, tcache,
+                                        torch.as_tensor(tok[:, s:s + 1]))
+            # the port writes its cache in place: keep this step's copy
+            steps.append(((tl, {k: v.clone() for k, v in tcache.items()}),
+                          (jl, jcache)))
+        out[mode] = steps
+    return jc, out
+
+
+def same_cache(got, want):
+    assert sorted(got) == sorted(want)
+    for name in want:
+        assert tuple(got[name].shape) == tuple(want[name].shape), name
+        if name in EXACT:
+            np.testing.assert_array_equal(got[name].numpy(),
+                                          np.asarray(want[name]), name)
+        else:
+            np.testing.assert_allclose(t2n(got[name]), j2n(want[name]),
+                                       rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+def test_family_forward_matches_the_reference(family):
+    cfg, out = family
+    got, want = out["fwd"]
+    assert tuple(got.shape) == tuple(want.shape)
+    np.testing.assert_allclose(t2n(got), j2n(want), rtol=1e-4, atol=1e-4)
+
+
+def test_family_prefill_cache_matches_the_reference(family):
+    """Logits and every cache field; ``wpos``, ``len`` and ``enc_len``
+    exactly (the hybrid's ring holds the last 16 of 24 positions)."""
+    cfg, out = family
+    (tl, tcache), (jl, jcache) = out["prefill"]
+    np.testing.assert_allclose(t2n(tl), j2n(jl), rtol=1e-4, atol=1e-4)
+    same_cache(tcache, jcache)
+    assert int(tcache["len"]) == 24
+    if cfg.family == "hybrid":
+        assert sorted(tcache["wpos"][0, 0].tolist()) == list(range(8, 24))
+    if cfg.family == "encdec":
+        assert int(tcache["enc_len"]) == 16
+
+
+@pytest.mark.parametrize("mode", ["scalar", "lanes"])
+def test_family_decode_matches_the_reference(family, mode):
+    for (tl, tcache), (jl, jcache) in family[1][mode]:
+        np.testing.assert_allclose(t2n(tl), j2n(jl), rtol=1e-4, atol=1e-4)
+        same_cache(tcache, jcache)
+
+
+@pytest.mark.parametrize("arch", OTHER)
+def test_family_bf16_forward_matches_the_reference(arch):
+    cfg = JCfg.load_smoke_config(arch)
+    jp = j_params(cfg, 9)
+    tok, extra = family_inputs(cfg, np.random.default_rng(9), B=2)
+    if cfg.family == "encdec":
+        want = jax.jit(lambda p, f, t: JM.forward_encdec(cfg, p, f, t))(
+            jp, jnp.asarray(extra["frames"]), jnp.asarray(tok))
+        got = TM.forward_encdec(TCfg.load_smoke_config(arch), t_params(jp),
+                                torch.as_tensor(extra["frames"]),
+                                torch.as_tensor(tok))
+    else:
+        p = extra.get("patches")
+        want = jax.jit(lambda p, t, x: JM.forward_lm(cfg, p, t, x))(
+            jp, jnp.asarray(tok), None if p is None else jnp.asarray(p))
+        got = TM.forward_lm(TCfg.load_smoke_config(arch), t_params(jp),
+                            torch.as_tensor(tok),
+                            None if p is None else torch.as_tensor(p))
+    assert got.dtype == torch.bfloat16
+    close(got, want, TOL["bfloat16"])

@@ -40,11 +40,16 @@ def serve(mod, cfg, params, prompts, max_new, **kw):
     return ticks, {r.rid: r.tokens for r in eng.completed}
 
 
-@pytest.mark.parametrize("arch", ["smollm_135m", "qwen3_0p6b"])
+@pytest.mark.parametrize("arch", ["smollm_135m", "qwen3_0p6b",
+                                  "granite_moe_1b", "grok1_314b",
+                                  "falcon_mamba_7b", "hymba_1p5b",
+                                  "internvl2_2b", "whisper_medium"])
 def test_token_ids_equal_the_reference(arch):
     """Seven requests of mixed prompt lengths over three slots: lanes are
     refilled at different positions, and one request outgrows max_len so
-    its lane keeps writing the last slot."""
+    its lane keeps writing the last slot. Every family serves tokens
+    alone: the vlm without patches, the enc-dec against an empty memory
+    (``enc_len`` 0), as the reference's engine does."""
     cfg = j_smoke(arch).replace(dtype="float32")
     jp = JM.init_params(cfg, KEY)
     rng = np.random.default_rng(0)
@@ -56,6 +61,57 @@ def test_token_ids_equal_the_reference(arch):
                 device="cpu")
     assert got == want
     assert len(got[1]) == 7 and all(len(t) == 6 for t in got[1].values())
+
+
+def logged_serve(mod, cfg, params, prompts, max_new, monkeypatch, **kw):
+    """``serve`` on one slot, recording each tick's logits [V]."""
+    logs = []
+    if mod is TS:
+        step = TM.decode_step
+        monkeypatch.setattr(TM, "decode_step", lambda *a: (
+            lambda out: (logs.append(out[0][0, 0].numpy().copy()), out)[1])(
+                step(*a)))
+        serve(mod, cfg, params, prompts, max_new, slots=1, device="cpu",
+              **kw)
+        return np.stack(logs)
+    eng = mod.ServeEngine(cfg, params, slots=1,
+                          straggler_factor=float("inf"), **kw)
+    dec = eng._decode
+    eng._decode = lambda *a: (lambda out: (
+        logs.append(np.asarray(out[0][0, 0])), out)[1])(dec(*a))
+    for i, p in enumerate(prompts):
+        eng.submit(mod.Request(rid=i, prompt=p, max_new=max_new))
+    eng.run_until_drained()
+    return np.stack(logs)
+
+
+@pytest.mark.parametrize("arch,gap", [("falcon_mamba_7b", 1e-4),
+                                      ("hymba_1p5b", 0.1)])
+def test_reused_slot_keeps_the_state_as_the_reference_does(arch, gap,
+                                                           monkeypatch):
+    """The reference's ``_admit`` resets only ``lane_len``: a reused slot
+    keeps the last request's SSM state (``h``, ``conv``) and, in the
+    hybrid, its window ring (``kw``, ``vw``, ``wpos``), which the ring's
+    ``wpos >= 0`` mask then attends. So one slot serving the same 6-token
+    prompt twice gives the second request other logits than the first:
+    on these inputs, in fp32, the first ticks differ by 8.9e-4
+    (falcon-mamba's smoke config) and 0.50 (hymba's, whose greedy tokens
+    differ too) in both packages. The port copies that: its logits equal
+    the reference's tick by tick."""
+    cfg = j_smoke(arch).replace(dtype="float32")
+    jp = JM.init_params(cfg, KEY)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, 6).astype(
+        np.int32)
+    n = len(prompt) + 4 - 1                   # ticks a request takes
+    want = logged_serve(JS, cfg, jp, [prompt, prompt], 4, monkeypatch,
+                        max_len=32)
+    got = logged_serve(TS, load_smoke_config(arch).replace(dtype="float32"),
+                       ported_params(jp), [prompt, prompt], 4, monkeypatch,
+                       max_len=32)
+    assert got.shape == want.shape == (2 * n, cfg.padded_vocab)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    for logs in (got, want):
+        assert np.abs(logs[n] - logs[0]).max() > gap
 
 
 def test_serve_engine_continuous_batching():
