@@ -4,16 +4,16 @@ the three-tier engine with the PQ lane and the fused topology executor,
 their searches and their write paths (streaming inserts and deletes,
 MVCC consolidation), the partitioned build, the sharded search, the
 GPU baseline, the cost model, the LM serving path with retrieval-
-augmented serving over a live index, and the MoE, SSM, hybrid, VLM and
-enc-dec serving paths at their published widths.
+augmented serving over a live index, the MoE, SSM, hybrid, VLM and
+enc-dec serving paths at their published widths, and training.
 
 Usage: python3 chip_smoke.py [--seed S] [--only PHASES]
 
 Phases, each printing JSON lines (any failure raises and exits non-zero;
 there is no CPU branch). ``--only`` runs a comma-separated subset of
 kernels, parity, write_parity, durability, main, tiered, consolidation,
-partitioned, distributed, baselines, calibrate, serve, families; the
-kernels line is printed only when all run.
+partitioned, distributed, baselines, calibrate, serve, families, train;
+the kernels line is printed only when all run.
 
 1. device        card name and power limit (nvidia-smi), torch and CUDA.
 2. build         nvcc builds every kernel (l2_gather, pq_adc, row_gather,
@@ -133,6 +133,29 @@ kernels line is printed only when all run.
                  8-24 tokens, 32 new tokens each (granite, falcon-mamba,
                  hymba), or prefill and 32 decode_steps of 8 prompts
                  (internvl2, whisper); params and peak device bytes.
+                 falcon-mamba-7b and hymba-1.5b run their bf16 prefill/
+                 decode with cuBLAS's reduced-precision bf16 reduction
+                 allowed and not, and serve with it on, off, off, on,
+                 all on the same inputs (ROADMAP C.1).
+16. train        the training path, which launches none of the four
+                 kernels (checked). Card against CPU in fp32 on the
+                 smoke configs of all ten architectures (granite-moe at
+                 both dispatches, hymba past its window): the loss within
+                 1e-5 and every gradient leaf within 1e-4 max|g| + 1e-7.
+                 The remat policies none, full and dots give equal
+                 gradients on two smoke configs; their peak device bytes
+                 for one AdamW step at SmolLM-135M's width (2 x 2,048
+                 tokens, bf16). SmolLM-135M at its published width in
+                 bf16 (fp32 params and moments) through train_loop.run
+                 over TokenPipeline, 40 steps of 8 x 2,048 tokens,
+                 save_async every 20: the loss falls; tokens/s, step
+                 p50/p99, peak bytes and the model FLOPs' share of the
+                 dense bf16 peak. Its last checkpoint restored on the CPU
+                 and on the card: two fp32 steps from it agree within
+                 1e-4. One mamba_mixer layer at falcon-mamba-7b's width
+                 (1 x 2,048 tokens): forward and backward ms, the scan's
+                 chunk alone, peak bytes. ef_int8_psum in an NCCL group
+                 of one rank equals ef_compress.
 
 Then the kernels line, the card line, and the final status line.
 """
@@ -157,7 +180,7 @@ FP32_FLOPS = 67e12            # H100 SXM fp32 outside the tensor cores
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 PHASES = ("kernels", "parity", "write_parity", "durability", "main",
           "tiered", "consolidation", "partitioned", "distributed",
-          "baselines", "calibrate", "serve", "families")
+          "baselines", "calibrate", "serve", "families", "train")
 
 
 def emit(phase, **kw):
@@ -2580,7 +2603,7 @@ def phase_serve_parity(dev, seed, archs=("smollm_135m", "qwen3_0p6b"),
 
 
 def serve_prefill_decode(cfg, params, rng, dev, B=8, S=128, max_len=256,
-                         extra=None, phase="serve_prefill_decode"):
+                         extra=None, phase="serve_prefill_decode", note=None):
     """The reference's prefill/decode check (tests/test_models.py) at the
     config's width: prefill over B x S tokens (after the vlm's patches,
     or over the enc-dec's frames) and one decode step, both against the
@@ -2614,6 +2637,7 @@ def serve_prefill_decode(cfg, params, rng, dev, B=8, S=128, max_len=256,
         if int(cache["len"]) != off + S + 1:
             raise AssertionError(f"{cfg.name}: cache len {cache['len']}")
         emit(phase, arch=cfg.name, family=cfg.family, dtype=dtype,
+             **(note or {}),
              params=sum(t.numel() for t in tree_leaves(params)),
              tokens=[B, S + 1], max_len=max_len,
              **{k: list(v.shape) for k, v in extra.items()},
@@ -2830,6 +2854,15 @@ FAMILY_CHECKS = (
     ("internvl2_2b", dict(patches=256, max_len=512)),
     ("whisper_medium", dict(frames=1500, max_len=1536)))
 FAMILY_SERVED = ("granite_moe_1b", "falcon_mamba_7b", "hymba_1p5b")
+# ROADMAP C.1: their bf16 prefill/decode and serving with cuBLAS's
+# reduced-precision bf16 reduction allowed (True, torch's default) and not
+FLAG_AB = ("falcon_mamba_7b", "hymba_1p5b")
+
+
+def bf16_reduction(allowed):
+    import torch
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        allowed
 
 
 def families_moe_capacity(cfg, params, rng, dev):
@@ -2908,18 +2941,33 @@ def family_full_width(arch, kw, rng, dev, seed):
     extra = lm_extra(cfg, rng, kw.get("B", 8), frames, patches)
     if cfg.family == "moe":
         families_moe_capacity(cfg, params, rng, dev)
-    serve_prefill_decode(cfg.replace(moe_impl="dense"), params, rng, dev,
-                         extra=extra, phase="families_prefill_decode", **kw)
+    # FLAG_AB: each setting on the same inputs (rng rewound); the served
+    # requests in turns (on, off, off, on), so that warm-up favours none
+    ab = arch in FLAG_AB
+    drawn = rng.bit_generator.state
+    for flag in (True, False) if ab else (False,):
+        rng.bit_generator.state = drawn
+        bf16_reduction(flag)
+        serve_prefill_decode(cfg.replace(moe_impl="dense"), params, rng, dev,
+                             extra=extra, phase="families_prefill_decode",
+                             note={"bf16_reduced_precision_reduction": flag},
+                             **kw)
     if arch in FAMILY_SERVED:
-        eng = ServeEngine(cfg, params, slots=8, max_len=256, device=dev)
-        st = serve_stats(eng, 8, 32, *serve_requests(
-            eng, [rng.integers(0, cfg.vocab, int(n), dtype=np.int32)
-                  for n in rng.integers(8, 25, 8)], 32))
-        emit("families_serve", arch=arch, family=cfg.family,
-             dtype=cfg.dtype, slots=8, max_len=256,
-             **({"moe_impl": cfg.moe_impl} if cfg.family == "moe" else {}),
-             **st)
-        del eng
+        drawn = rng.bit_generator.state
+        for flag in (True, False, False, True) if ab else (False,):
+            rng.bit_generator.state = drawn
+            eng = ServeEngine(cfg, params, slots=8, max_len=256, device=dev)
+            bf16_reduction(flag)        # the engine turned it off
+            st = serve_stats(eng, 8, 32, *serve_requests(
+                eng, [rng.integers(0, cfg.vocab, int(n), dtype=np.int32)
+                      for n in rng.integers(8, 25, 8)], 32))
+            emit("families_serve", arch=arch, family=cfg.family,
+                 dtype=cfg.dtype, slots=8, max_len=256,
+                 bf16_reduced_precision_reduction=flag,
+                 **({"moe_impl": cfg.moe_impl} if cfg.family == "moe"
+                    else {}), **st)
+            del eng
+        bf16_reduction(False)
     else:
         families_decode(cfg, params, rng, dev,
                         lm_extra(cfg, rng, 8, frames, patches),
@@ -2941,6 +2989,358 @@ def phase_families(dev, seed):
     rng = np.random.default_rng(seed)
     for arch, kw in FAMILY_CHECKS:
         family_full_width(arch, kw, rng, dev, seed)
+
+
+# ---------------------------------------------------------------------------
+# train: the training path (loss, backward, remat, AdamW, data,
+# checkpoints, gradient compression, the train loop)
+# ---------------------------------------------------------------------------
+
+BF16_FLOPS = 989e12           # H100 SXM dense bf16 (tensor cores, 700 W)
+PORTED = ("l2_gather", "pq_adc", "row_gather", "topk_merge")
+
+
+def ported_launches():
+    import importlib
+    return {k: importlib.import_module(f"repro_torch.kernels.{k}.kernel")
+            .launches for k in PORTED}
+
+
+def train_batch(cfg, rng, dev, B=2, S=24):
+    """Tokens, next-token labels and a mask with ~20% of positions out
+    (the vlm's patches, the enc-dec's 16 frames), from ``rng``, on
+    ``dev``."""
+    import torch
+    tok = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+    b = {"tokens": tok, "labels": np.roll(tok, -1, 1),
+         "mask": (rng.random((B, S)) < 0.8).astype(np.float32)}
+    b.update({k: v.numpy() for k, v in lm_extra(cfg, rng, B).items()})
+    return {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+
+
+def loss_and_grads(cfg, params, batch, dev):
+    """The loss and the gradient leaves (sorted-key order) of ``loss_fn``
+    on a copy of ``params`` on ``dev``."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import tree_leaves, tree_map
+    params = tree_map(lambda a: a.detach().to(dev, copy=True)
+                      .requires_grad_(), params)
+    leaves = tree_leaves(params)
+    loss = M.loss_fn(cfg, params, {k: v.to(dev) for k, v in batch.items()})
+    return loss.detach(), torch.autograd.grad(
+        loss, leaves, allow_unused=True, materialize_grads=True)
+
+
+def grad_ratio(got, want):
+    """max over leaves of max|g - g_ref| / (1e-4 max|g_ref| + 1e-7): at
+    most 1 within the gradient tolerance."""
+    return max(((g.cpu() - w.cpu()).abs().max()
+                / (1e-4 * w.abs().max().cpu() + 1e-7)).item()
+               for g, w in zip(got, want))
+
+
+def train_parity(dev, seed):
+    """Card against CPU on every smoke config in fp32 (granite-moe at both
+    dispatches, the hybrid over 40 positions, past its window of 16): the
+    loss within 1e-5 and every gradient leaf within 1e-4 max|g| + 1e-7."""
+    import torch
+    from repro_torch.configs.base import ARCH_IDS, load_smoke_config
+    from repro_torch.models import model as M
+    rng = np.random.default_rng(seed)
+    cases = [(a, None) for a in ARCH_IDS] + [("granite_moe_1b", "dense")]
+    for arch, impl in cases:
+        cfg = load_smoke_config(arch).replace(dtype="float32")
+        cfg = cfg.replace(moe_impl=impl) if impl else cfg
+        batch = train_batch(cfg, rng, "cpu",
+                            S=40 if cfg.family == "hybrid" else 24)
+        params = M.init_params(cfg, torch.Generator().manual_seed(seed))
+        (l_cpu, g_cpu), (l_dev, g_dev) = (
+            loss_and_grads(cfg, params, batch, d) for d in ("cpu", dev))
+        loss_err = abs(l_dev.item() - l_cpu.item())
+        worst = grad_ratio(g_dev, g_cpu)
+        emit("train_parity", arch=arch, family=cfg.family, dtype="float32",
+             **({"moe_impl": cfg.moe_impl} if cfg.family == "moe" else {}),
+             tokens=list(batch["tokens"].shape), loss_cpu=l_cpu.item(),
+             loss_abs_err=loss_err, grad_leaves=len(g_cpu),
+             worst_grad_ratio=worst, tol=dict(loss=1e-5, grad_rel=1e-4,
+                                              grad_abs=1e-7))
+        if loss_err > 1e-5 or worst > 1.0:
+            raise AssertionError(f"{arch}: the card's loss or gradients "
+                                 "miss the CPU's")
+
+
+def train_remat(dev, seed, B=2, S=2048):
+    """The remat policies: equal gradients on the smollm and hymba smoke
+    configs on the card (fp32, held within the gradient tolerance of
+    "none"; bit-equality reported), then one AdamW step of each at
+    SmolLM-135M's width in bf16 on B x S tokens: peak device bytes above
+    what was allocated before, and ms of a second step."""
+    import torch
+    from repro_torch.configs.base import load_config, load_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as Opt
+    from repro_torch.train.train_loop import make_step
+    rng = np.random.default_rng(seed)
+    for arch in ("smollm_135m", "hymba_1p5b"):
+        base = load_smoke_config(arch).replace(dtype="float32")
+        batch = train_batch(base, rng, "cpu", S=40)
+        params = M.init_params(base, torch.Generator().manual_seed(seed))
+        out = {pol: loss_and_grads(base.replace(remat_policy=pol), params,
+                                   batch, dev)
+               for pol in ("none", "full", "dots")}
+        for pol in ("full", "dots"):
+            worst = grad_ratio(out[pol][1], out["none"][1])
+            emit("train_remat_parity", arch=arch, policy=pol,
+                 against="none", worst_grad_ratio=worst,
+                 loss_bit_equal=bool(torch.equal(out[pol][0],
+                                                 out["none"][0])),
+                 grads_bit_equal=all(torch.equal(a, b) for a, b in
+                                     zip(out[pol][1], out["none"][1])))
+            if worst > 1.0:
+                raise AssertionError(f"{arch}: remat {pol} changes the "
+                                     "gradients")
+    cfg = load_config("smollm_135m")
+    adam = Opt.AdamConfig(lr=1e-3, warmup=10, total_steps=40)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S + 1),
+                                       dtype=np.int32), device=dev)
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:],
+             "mask": torch.ones(B, S, device=dev)}
+    for pol in ("none", "full", "dots"):
+        c = cfg.replace(remat_policy=pol)
+        params = M.init_params(c, torch.Generator(device=dev)
+                               .manual_seed(seed))
+        state = Opt.init_adam(params, adam)
+        step = make_step(c, adam)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        params, state, _ = step(params, state, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, batch)
+        loss = loss.item()
+        ms = (time.perf_counter() - t0) * 1e3
+        emit("train_remat_peak", arch=cfg.name, policy=pol, dtype=cfg.dtype,
+             tokens=[B, S], peak_device_bytes=torch.cuda.max_memory_allocated()
+             - before, allocated_before_bytes=before, step_ms=ms, loss=loss)
+        del params, state, step
+        torch.cuda.empty_cache()
+
+
+def train_flops(cfg, B, S):
+    """Model FLOPs of one training step (3 x the forward's): every product
+    with a weight (2 x params x tokens, the tied head included) and the
+    attention's two [S x S] products as computed (the whole square)."""
+    D, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    per_layer = 2 * D * H * Dh + 2 * D * Hkv * Dh + 3 * D * cfg.d_ff
+    weights = cfg.n_layers * per_layer + D * cfg.padded_vocab
+    attn = 4 * cfg.n_layers * S * H * Dh
+    return 3 * B * S * (2 * weights + attn)
+
+
+def train_smollm(dev, seed, ckpt_dir, steps=40, B=8, S=2048):
+    """SmolLM-135M at its published width in bf16 (fp32 params and
+    moments, remat "full") through ``train_loop.run`` over TokenPipeline,
+    ``save_async`` every 20 steps: the loss falls (the mean of the last 5
+    below the mean of the first 5), tokens/s and step ms (host clock, a
+    step ends with its loss on the host; the first step, which warms the
+    allocator and cuBLAS, apart), peak device bytes, and the share of the
+    model FLOPs against the card's dense bf16 peak."""
+    import torch
+    from repro_torch.configs.base import load_config
+    from repro_torch.train import train_loop
+    cfg = load_config("smollm_135m")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    res = train_loop.run(cfg, steps=steps, batch=B, seq=S,
+                         ckpt_dir=ckpt_dir, ckpt_every=20, seed=seed,
+                         device=dev)
+    seconds = time.perf_counter() - t0
+    losses = res.losses
+    ms = np.array(res.step_seconds[1:]) * 1e3
+    p50 = float(np.percentile(ms, 50))
+    flops = train_flops(cfg, B, S)
+    emit("train_smollm", arch=cfg.name, dtype=cfg.dtype,
+         param_dtype=cfg.param_dtype, remat=cfg.remat_policy, batch=B,
+         seq=S, steps=len(losses), losses=losses,
+         first5_mean=float(np.mean(losses[:5])),
+         last5_mean=float(np.mean(losses[-5:])),
+         first_step_ms=res.step_seconds[0] * 1e3, step_p50_ms=p50,
+         step_p99_ms=float(np.percentile(ms, 99)),
+         tokens_per_s=B * S / (p50 / 1e3), model_flops_per_step=flops,
+         bf16_peak_share=flops / (p50 / 1e3) / BF16_FLOPS,
+         peak_device_bytes=torch.cuda.max_memory_allocated() - before,
+         allocated_before_bytes=before, seconds=seconds,
+         checkpoints=sorted(int(p.name.split("_")[1])
+                            for p in Path(ckpt_dir).glob("step_*")),
+         card=card_line())
+    if len(losses) != steps or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"train_smollm: losses {losses}")
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError("train_smollm: the loss did not fall")
+
+
+def train_checkpoint(dev, seed, ckpt_dir, B=1, S=256):
+    """The card's last checkpoint restored on the CPU and on the card;
+    two more steps from it on each, in fp32 on B x S tokens: equal losses
+    within TOL["float32"]."""
+    import torch
+    from repro_torch.configs.base import load_config
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.train import optimizer as Opt
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.data import TokenPipeline
+    from repro_torch.train.train_loop import make_step
+    cfg = load_config("smollm_135m").replace(dtype="float32")
+    shapes = tree_map(lambda t: torch.empty(t.shape),
+                      M.build_templates(cfg))
+    like = (shapes, Opt.AdamState(torch.zeros((), dtype=torch.int32),
+                                  shapes, shapes))
+    mgr = CheckpointManager(ckpt_dir)
+    t0 = time.perf_counter()
+    step_cpu, state_cpu = mgr.restore(like)
+    restore_s = time.perf_counter() - t0
+    step_dev, state_dev = mgr.restore(like, device=dev)
+    if step_cpu is None or step_cpu != step_dev:
+        raise AssertionError(f"restored steps {step_cpu}, {step_dev}")
+    pipe = TokenPipeline(cfg.vocab, B, S, seed=seed + 1)
+    batch = next(pipe)
+    pipe.close()
+    adam = Opt.AdamConfig(lr=1e-3, warmup=10, total_steps=40)
+    losses = {}
+    for name, d, (params, state) in (("cpu", "cpu", state_cpu),
+                                     ("card", dev, state_dev)):
+        step = make_step(cfg, adam)
+        b = {k: torch.as_tensor(v, device=d) for k, v in batch.items()}
+        out = []
+        for _ in range(2):
+            params, state, loss = step(params, state, b)
+            out.append(loss.item())
+        losses[name] = out
+    err = max(abs(a - b) for a, b in zip(losses["card"], losses["cpu"]))
+    emit("train_checkpoint", restored_step=step_cpu,
+         steps_on_disk=mgr.all_steps(),
+         leaves=len(tree_leaves(state_cpu[0])) * 3 + 1,
+         cpu_restore_s=restore_s, tokens=[B, S], dtype="float32",
+         losses_cpu=losses["cpu"], losses_card=losses["card"],
+         max_abs_err=err, tol=TOL["float32"])
+    if err > TOL["float32"]:
+        raise AssertionError("the restored checkpoint steps differently on "
+                             "the CPU and the card")
+
+
+def train_ssm_layer(dev, seed, B=1, S=2048, reps=3):
+    """One mamba_mixer layer at falcon-mamba-7b's width (d_inner 8,192,
+    d_state 16, chunks of 256) in bf16 on B x S: forward and backward ms
+    (host clock, synchronised; the median of ``reps``), the scan alone on
+    one chunk forward and backward, and the peak device bytes of a
+    forward and backward."""
+    import torch
+    from repro_torch.configs.base import load_config
+    from repro_torch.models import mamba as Ma
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import init_from_template
+    cfg = load_config("falcon_mamba_7b")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = {k: v.requires_grad_() for k, v in init_from_template(
+        gen, Ma.ssm_template(cfg)).items()}
+    x = torch.randn(B, S, cfg.d_model, generator=gen, device=dev).to(
+        torch.bfloat16).requires_grad_()
+    gy = torch.randn(B, S, cfg.d_model, generator=gen, device=dev).to(
+        torch.bfloat16)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    fwd, bwd, peak = [], [], 0
+    for _ in range(reps + 1):              # the first warms up
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        y, f_ms = timed(lambda: Ma.mamba_mixer(M.cast_params(cfg, p), x,
+                                               cfg)[0])
+        _, b_ms = timed(lambda: y.backward(gy))
+        peak = torch.cuda.max_memory_allocated() - before
+        fwd.append(f_ms)
+        bwd.append(b_ms)
+        del y
+    C, Din, N = cfg.ssm_chunk, cfg.d_inner, cfg.d_state
+    a = torch.rand(B, C, Din, N, generator=gen, device=dev).mul_(0.5).add_(
+        0.5).requires_grad_()
+    bx = torch.randn(B, C, Din, N, generator=gen, device=dev
+                     ).requires_grad_()
+    h0 = torch.zeros(B, Din, N, device=dev, requires_grad=True)
+    g = torch.ones(B, C, Din, N, device=dev)
+    scan_f, scan_b = [], []
+    for _ in range(reps + 1):
+        hs, f_ms = timed(lambda: Ma._chunk_scan(a, bx, h0)[0])
+        _, b_ms = timed(lambda: hs.backward(g))
+        scan_f.append(f_ms)
+        scan_b.append(b_ms)
+    emit("train_ssm_layer", arch=cfg.name, dtype="bfloat16", tokens=[B, S],
+         d_inner=Din, d_state=N, chunk=C, chunks=S // C,
+         mixer_forward_ms=float(np.median(fwd[1:])),
+         mixer_backward_ms=float(np.median(bwd[1:])),
+         scan_chunk_forward_ms=float(np.median(scan_f[1:])),
+         scan_chunk_backward_ms=float(np.median(scan_b[1:])),
+         peak_device_bytes=peak, method="host clock around synchronised "
+         f"calls, median of {reps} after one warm-up")
+
+
+def train_psum(dev, seed):
+    """``ef_int8_psum`` and ``make_crosspod_grad_sync`` in an NCCL group of
+    one rank: equal to ``ef_compress`` (the mean over one rank)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.train.compression import (ef_compress, ef_int8_psum,
+                                               make_crosspod_grad_sync)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.randn(1024, 4096, generator=gen, device=dev)
+    e = torch.randn(1024, 4096, generator=gen, device=dev) * 1e-3
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        got, got_err = ef_int8_psum(g, e)
+        tree, tree_err = make_crosspod_grad_sync()({"w": g}, {"w": e})
+        torch.cuda.synchronize()
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    want, want_err = ef_compress(g, e)
+    same = all(torch.equal(a, b) for a, b in (
+        (got, want), (got_err, want_err), (tree["w"], want),
+        (tree_err["w"], want_err)))
+    emit("train_psum", backend=backend, world=1, shape=list(g.shape),
+         equal_to_ef_compress=same)
+    if not same:
+        raise AssertionError("ef_int8_psum over one rank differs from "
+                             "ef_compress")
+
+
+def phase_train(dev, seed):
+    """The training path: card against CPU on the smoke configs, the remat
+    policies, SmolLM-135M trained at its width, its checkpoint restored on
+    the CPU, the SSM layer at falcon-mamba's width and the compressed
+    all-reduce. It launches none of the ported kernels (checked)."""
+    t0 = time.perf_counter()
+    launched = ported_launches()
+    train_parity(dev, seed)
+    train_remat(dev, seed)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        train_smollm(dev, seed, ckpt_dir)
+        train_checkpoint(dev, seed, ckpt_dir)
+    train_ssm_layer(dev, seed)
+    train_psum(dev, seed)
+    if ported_launches() != launched:
+        raise AssertionError("the train phase launched a ported kernel")
+    emit("train", seconds=time.perf_counter() - t0)
 
 
 def main():
@@ -3035,6 +3435,8 @@ def main():
         l2_rag_launches = phase_serve(dev, args.seed)
     if "families" in only:
         phase_families(dev, args.seed)
+    if "train" in only:
+        phase_train(dev, args.seed)
     emit("phases", ran=only, seconds=time.perf_counter() - t_run)
 
     if only == list(PHASES):

@@ -19,7 +19,9 @@ arrays (``core/distributed.py``). ``model_params_from_arrays`` carries an
 LM's params (the reference's pytree as nested dicts of numpy arrays,
 ``jax.tree.map(np.asarray, params)``) into the port, so that both
 packages compute with the same weights; ``model_params_to_arrays`` goes
-back.
+back. ``adam_state_from_arrays`` / ``adam_state_to_arrays`` carry an
+optimizer state (``train.optimizer.AdamState``: step, mu, nu) the same
+way.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from repro_torch.core.tiers import (AttributeStore, DiskTier, TieredBackend,
                                     TieredStore)
 from repro_torch.core.types import CacheState, GraphState, IndexState, Stats
 from repro_torch.core.update import RevLog
+from repro_torch.train.optimizer import AdamState
 
 
 def _tensors(cls, arrays, device):
@@ -165,3 +168,20 @@ def model_params_to_arrays(params):
     if isinstance(params, dict):
         return {k: model_params_to_arrays(v) for k, v in params.items()}
     return params.detach().float().cpu().numpy()
+
+
+def adam_state_from_arrays(state, device) -> AdamState:
+    """An AdamState from (step, mu, nu) as numpy (the reference's state
+    through ``jax.tree.map(np.asarray, state)``): an int32 0-d step and
+    fp32 moments on ``device``."""
+    step, mu, nu = state
+    return AdamState(torch.as_tensor(np.array(step, np.int32), device=device),
+                     model_params_from_arrays(mu, device),
+                     model_params_from_arrays(nu, device))
+
+
+def adam_state_to_arrays(state: AdamState) -> tuple:
+    """(step, mu, nu) as numpy: an int32 0-d step and fp32 moments (the
+    reference's ``AdamState(*arrays)`` takes them)."""
+    return (state.step.detach().cpu().numpy().astype(np.int32),
+            model_params_to_arrays(state.mu), model_params_to_arrays(state.nu))

@@ -1,2 +1,2 @@
-"""LM building blocks and model assembly (twin of ``repro.models``; the
-dense family)."""
+"""LM building blocks and model assembly for every family, with the
+training loss and the remat policies (twin of ``repro.models``)."""

@@ -1,5 +1,6 @@
 """Core model building blocks: templates, norms, RoPE, attention, SwiGLU
-(twin of ``repro.models.layers``).
+(twin of ``repro.models.layers``), the training loss and the remat
+policies.
 
 Parameters are nested dicts of tensors. Every family builds a *template*
 — a nested dict of ``TSpec(shape, axes, scale)`` — from which the
@@ -24,6 +25,8 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 NEG = -1e30          # the reference's additive mask value
 
@@ -34,12 +37,14 @@ class TSpec(NamedTuple):
     scale: float = 0.02    # normal init stddev; 0 -> zeros; -1 -> ones
 
 
-def tree_map(fn, tree):
+def tree_map(fn, tree, *rest):
     """``fn`` on every leaf of a nested dict (keys in sorted order, as a
-    JAX pytree flattens them)."""
+    JAX pytree flattens them), with the same leaf of each of ``rest``
+    (dicts of the same structure) as further arguments."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
-    return fn(tree)
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:
@@ -277,3 +282,62 @@ def lm_logits(p, x, cfg):
     """Logits over the padded vocabulary (``cfg.padded_vocab`` wide)."""
     w = p["head"] if not cfg.tie_embeddings else p["embed"].T
     return x @ w.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def softmax_xent(logits, labels, mask=None):
+    """logits [B,S,V], labels [B,S] -> the mean token cross-entropy (fp32).
+    The logsumexp runs over all V columns, the padding columns of
+    ``lm_logits`` included, as the reference's does; with ``mask`` [B,S]
+    the mean is over the masked-in tokens (at least one)."""
+    logits = logits.float()
+    labels = torch.as_tensor(labels, device=logits.device).long()
+    loss = torch.logsumexp(logits, -1) - logits.gather(
+        -1, labels[..., None])[..., 0]
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=logits.device).float()
+        return (loss * mask).sum() / mask.sum().clamp_min(1)
+    return loss.mean()
+
+
+# ---------------------------------------------------------------------------
+# Remat
+# ---------------------------------------------------------------------------
+
+# "dots" keeps the outputs of the products without batch dimensions (a
+# [B,S,D] x [D,F] ``@`` folds to ``mm``), as the reference's
+# ``dots_with_no_batch_dims_saveable``; the attention and expert
+# products run as ``bmm`` and are recomputed, as in JAX
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_DOTS)
+
+
+def _differentiated(args) -> bool:
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for a in args for t in tree_leaves(a)
+        if torch.is_tensor(t))
+
+
+def maybe_remat(fn, policy: str):
+    """``fn`` under the remat ``policy``: "none" saves every activation,
+    "dots" saves ``fn``'s inputs and its batch-free matmul outputs and
+    recomputes the rest in the backward, anything else ("full") saves
+    only the inputs. A call that no gradient will pass through (grad mode
+    off, or no argument requiring grad: serving, prefill) runs ``fn``
+    as it is, as ``jax.checkpoint`` does outside differentiation. The
+    values computed do not depend on the policy."""
+    if policy == "none":
+        return fn
+    kw = {"context_fn": _dots_context} if policy == "dots" else {}
+
+    def remat(*args):
+        if not _differentiated(args):
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return remat

@@ -17,6 +17,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from repro_torch.models.layers import TSpec
 
@@ -70,14 +71,41 @@ def _ssm_coeffs(p, xc, cfg):
     return a, bx, Cc.float()
 
 
+class _Scan(torch.autograd.Function):
+    """hs[t] = a[t] * hs[t-1] + bx[t] (hs[-1] = h0), one step at a time.
+    The backward runs the recurrence in reverse: with G[t] the gradient
+    reaching hs[t] through every later step, G[t] = g_hs[t] + a[t+1] *
+    G[t+1]; then g_bx = G, g_a[t] = G[t] * hs[t-1] and g_h0 = a[0] * G[0].
+    It keeps a, hs and h0 (not one autograd node a step)."""
+
+    @staticmethod
+    def forward(ctx, a, bx, h0):
+        hs = torch.empty_like(bx)
+        h = h0
+        for t in range(a.shape[1]):
+            h = torch.mul(a[:, t], h, out=hs[:, t])
+            h += bx[:, t]
+        ctx.save_for_backward(a, hs, h0)
+        return hs
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_hs):
+        a, hs, h0 = ctx.saved_tensors
+        G = torch.empty_like(g_hs)
+        g = G[:, -1]
+        g.copy_(g_hs[:, -1])
+        for t in range(a.shape[1] - 2, -1, -1):
+            g = torch.addcmul(g_hs[:, t], a[:, t + 1], g, out=G[:, t])
+        h_prev = torch.cat([h0[:, None], hs[:, :-1]], 1)
+        return G * h_prev, G, a[:, 0] * G[:, 0]
+
+
 def _chunk_scan(a, bx, h0):
     """Within-chunk scan. a, bx [B,C,Din,N]; h0 [B,Din,N] -> (states
-    [B,C,Din,N], a copy of the last state), one step at a time."""
-    hs = torch.empty_like(bx)
-    h = h0
-    for t in range(a.shape[1]):
-        h = torch.mul(a[:, t], h, out=hs[:, t])
-        h += bx[:, t]
+    [B,C,Din,N], a copy of the last state), one step at a time
+    (differentiable through ``_Scan``)."""
+    hs = _Scan.apply(a, bx, h0)
     return hs, hs[:, -1].clone()
 
 

@@ -4,12 +4,14 @@
 Families: dense | moe | ssm | hybrid | encdec | vlm.
 
 Each layer stack is a Python loop over the stacked layer params (the
-reference scans them); the hybrid family runs its 3 global-attention
-layers and its sliding-window layers in layer order. ``prefill`` returns
-a KV/SSM cache; ``decode_step`` consumes it and writes the new token's
-keys, values and states into it IN PLACE (one write per lane; the
-reference returns a new cache, the port saves the copy of the whole cache
-per token), returning the cache dict with the new length.
+reference scans them), each layer of a full-sequence forward under the
+config's remat policy (``layers.maybe_remat``); the hybrid family runs
+its 3 global-attention layers and its sliding-window layers in layer
+order. ``loss_fn`` is the training loss over that forward. ``prefill``
+returns a KV/SSM cache; ``decode_step`` consumes it and writes the new
+token's keys, values and states into it IN PLACE (one write per lane;
+the reference returns a new cache, the port saves the copy of the whole
+cache per token), returning the cache dict with the new length.
 
 As the reference does, the layer params are cast to the compute dtype
 once per call (``cfg.cast_params_once``), so that the fp32 reads of the
@@ -25,8 +27,9 @@ from repro_torch.models import moe as Moe
 from repro_torch.models.layers import (NEG, TSpec, attention, attn_out,
                                        attn_qkv, attn_template,
                                        decode_attention, embed_template,
-                                       embed_tokens, lm_logits, mlp_apply,
-                                       mlp_template, rms_norm)
+                                       embed_tokens, lm_logits, maybe_remat,
+                                       mlp_apply, mlp_template, rms_norm,
+                                       softmax_xent)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -154,13 +157,15 @@ def _cast_once(cfg, tree):
     return cast_params(cfg, tree) if cfg.cast_params_once else tree
 
 
-def _layer(tree, i):
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
-
-
-def _n_layers(layers) -> int:
-    return layers["ln1"].shape[0]
+def _unstack(tree) -> list:
+    """Stacked layer params -> one param dict a layer. ``unbind`` splits
+    every leaf once, so the backward stacks the layers' gradients in one
+    write (indexing layer by layer would add a full-size zero gradient a
+    layer)."""
+    if isinstance(tree, dict):
+        cols = {k: _unstack(v) for k, v in tree.items()}
+        return [dict(zip(cols, row)) for row in zip(*cols.values())]
+    return list(tree.unbind(0))
 
 
 # ---------------------------------------------------------------------------
@@ -233,37 +238,35 @@ def _stack(parts):
 
 
 def _lm_trunk(cfg, params, emb, positions, collect=False):
-    """Run the layer stack on embeddings. Returns (hidden, cache parts):
-    with ``collect``, (k, v) stacked [L, B, S, Hkv, Dh] for dense, moe and
-    vlm; (h, conv) stacked for ssm; for hybrid, per-layer lists of
-    ((k, v), (h, conv)) for the global and the window layers."""
+    """Run the layer stack on embeddings, each layer under the config's
+    remat policy. Returns (hidden, cache parts): with ``collect``, (k, v)
+    stacked [L, B, S, Hkv, Dh] for dense, moe and vlm; (h, conv) stacked
+    for ssm; for hybrid, per-layer lists of ((k, v), (h, conv)) for the
+    global and the window layers."""
     fam = cfg.family
-    if fam in ("dense", "moe", "vlm"):
-        layers = _cast_once(cfg, params["layers"])
+    rp = cfg.remat_policy
+    if fam in ("dense", "moe", "vlm", "ssm"):
+        if fam == "ssm":
+            lyr = maybe_remat(lambda x, p: ssm_layer_fwd(
+                cfg, p, x, collect=collect), rp)
+        else:
+            lyr = maybe_remat(lambda x, p: dense_layer_fwd(
+                cfg, p, x, positions, collect=collect), rp)
         x, parts = emb, []
-        for i in range(_n_layers(layers)):
-            x, kv = dense_layer_fwd(cfg, _layer(layers, i), x, positions,
-                                    collect=collect)
-            parts.append(kv)
-        return x, (_stack(parts) if collect else None)
-
-    if fam == "ssm":
-        layers = _cast_once(cfg, params["layers"])
-        x, parts = emb, []
-        for i in range(_n_layers(layers)):
-            x, st = ssm_layer_fwd(cfg, _layer(layers, i), x, collect=collect)
-            parts.append(st)
+        for p in _unstack(_cast_once(cfg, params["layers"])):
+            x, part = lyr(x, p)
+            parts.append(part)
         return x, (_stack(parts) if collect else None)
 
     if fam == "hybrid":
-        stacks = {"global": _cast_once(cfg, params["global"]),
-                  "swa": _cast_once(cfg, params["swa"])}
+        def layer(window):
+            return maybe_remat(lambda x, p: hybrid_layer_fwd(
+                cfg, p, x, positions, window=window, collect=collect), rp)
+        lyr = {"global": layer(0), "swa": layer(cfg.swa_window)}
+        stacks = {k: _unstack(_cast_once(cfg, params[k])) for k in lyr}
         x, caches = emb, {"global": [], "swa": []}
         for kind, i in _hybrid_order(cfg):
-            x, c = hybrid_layer_fwd(
-                cfg, _layer(stacks[kind], i), x, positions,
-                window=cfg.swa_window if kind == "swa" else 0,
-                collect=collect)
+            x, c = lyr[kind](x, stacks[kind][i])
             caches[kind].append(c)
         return x, ((caches["global"], caches["swa"]) if collect else None)
 
@@ -296,9 +299,10 @@ def _encode(cfg, params, frames):
     dev = params["tok"]["embed"].device
     mem = torch.as_tensor(frames, device=dev).to(dt)
     mem_pos = torch.arange(mem.shape[1], device=dev)
-    enc = _cast_once(cfg, params["enc"])
-    for i in range(_n_layers(enc)):
-        mem = enc_layer_fwd(cfg, _layer(enc, i), mem, mem_pos)
+    lyr = maybe_remat(lambda x, p: enc_layer_fwd(cfg, p, x, mem_pos),
+                      cfg.remat_policy)
+    for p in _unstack(_cast_once(cfg, params["enc"])):
+        mem = lyr(mem, p)
     return rms_norm(mem, params["enc_final_norm"], cfg.norm_eps), mem_pos
 
 
@@ -309,11 +313,11 @@ def _decode_trunk(cfg, params, mem, mem_pos, tokens, collect=False):
     x = embed_tokens(params["tok"], torch.as_tensor(tokens, device=dev),
                      dtype_of(cfg.dtype))
     pos = torch.arange(x.shape[1], device=dev)
-    dec = _cast_once(cfg, params["dec"])
+    lyr = maybe_remat(lambda x, p: dec_layer_fwd(
+        cfg, p, x, mem, pos, mem_pos, collect=collect), cfg.remat_policy)
     parts = []
-    for i in range(_n_layers(dec)):
-        x, kv = dec_layer_fwd(cfg, _layer(dec, i), x, mem, pos, mem_pos,
-                              collect=collect)
+    for p in _unstack(_cast_once(cfg, params["dec"])):
+        x, kv = lyr(x, p)
         parts.append(kv)
     return x, (_stack(parts) if collect else None)
 
@@ -325,6 +329,20 @@ def forward_encdec(cfg, params, frames, tokens):
     x, _ = _decode_trunk(cfg, params, mem, mem_pos, tokens)
     x = rms_norm(x, params["tok"]["final_norm"], cfg.norm_eps)
     return lm_logits(params["tok"], x, cfg)
+
+
+def loss_fn(cfg, params, batch):
+    """The training loss: ``batch`` holds the family's inputs (tokens;
+    patches for vlm, frames for encdec), labels [B,S] and an optional
+    mask [B,S]. The vlm's patch positions carry no label and are dropped
+    before the loss."""
+    if cfg.family == "encdec":
+        logits = forward_encdec(cfg, params, batch["frames"], batch["tokens"])
+    else:
+        logits = forward_lm(cfg, params, batch["tokens"], batch.get("patches"))
+        if cfg.family == "vlm":
+            logits = logits[:, batch["patches"].shape[1]:]
+    return softmax_xent(logits, batch["labels"], batch.get("mask"))
 
 
 # ---------------------------------------------------------------------------
@@ -492,9 +510,7 @@ def decode_step(cfg, params, cache, token):
     x = embed_tokens(params["tok"], torch.as_tensor(token, device=dev), dt)
 
     if fam in ("dense", "moe", "vlm"):
-        layers = _cast_once(cfg, params["layers"])
-        for i in range(_n_layers(layers)):
-            p = _layer(layers, i)
+        for i, p in enumerate(_unstack(_cast_once(cfg, params["layers"]))):
             h = rms_norm(x, p["ln1"], cfg.norm_eps)
             o = _decode_attn_layer(cfg, p, h, cache["k"][i], cache["v"][i],
                                    pos, kv_len)
@@ -506,9 +522,7 @@ def decode_step(cfg, params, cache, token):
                 x = x + mlp_apply(p["mlp"], h)
 
     elif fam == "ssm":
-        layers = _cast_once(cfg, params["layers"])
-        for i in range(_n_layers(layers)):
-            p = _layer(layers, i)
+        for i, p in enumerate(_unstack(_cast_once(cfg, params["layers"]))):
             y, (h1, c1) = M.mamba_step(
                 p["ssm"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
                 (cache["h"][i], cache["conv"][i]))
@@ -517,10 +531,10 @@ def decode_step(cfg, params, cache, token):
             cache["conv"][i] = c1
 
     elif fam == "hybrid":
-        stacks = {"global": _cast_once(cfg, params["global"]),
-                  "swa": _cast_once(cfg, params["swa"])}
+        stacks = {k: _unstack(_cast_once(cfg, params[k]))
+                  for k in ("global", "swa")}
         for kind, i in _hybrid_order(cfg):
-            p = _layer(stacks[kind], i)
+            p = stacks[kind][i]
             sfx = "g" if kind == "global" else "w"
             hh = rms_norm(x, p["ln1"], cfg.norm_eps)
             o = _decode_attn_layer(
@@ -539,10 +553,8 @@ def decode_step(cfg, params, cache, token):
             x = x + mlp_apply(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
 
     elif fam == "encdec":
-        dec = _cast_once(cfg, params["dec"])
         positions = pos[None, None] if pos.ndim == 0 else pos[:, None]
-        for i in range(_n_layers(dec)):
-            p = _layer(dec, i)
+        for i, p in enumerate(_unstack(_cast_once(cfg, params["dec"]))):
             h = rms_norm(x, p["ln1"], cfg.norm_eps)
             o = _decode_attn_layer(cfg, p, h, cache["k"][i], cache["v"][i],
                                    pos, kv_len)

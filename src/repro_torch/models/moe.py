@@ -120,3 +120,13 @@ def moe_apply(p, x, cfg):
     if cfg.moe_impl == "dense":
         return moe_apply_dense(p, x, cfg)
     return moe_apply_capacity(p, x, cfg)
+
+
+def aux_load_balance_loss(p, x, cfg):
+    """Switch-style load-balance auxiliary loss: E times the sum over
+    experts of (share of tokens whose top-1 expert it is) x (mean router
+    probability). ``argmax`` takes the first maximum, as ``jnp.argmax``."""
+    E = cfg.n_experts
+    probs = _router_probs(p, x).reshape(-1, E)
+    frac = F.one_hot(probs.argmax(-1), E).float().mean(0)
+    return E * (frac * probs.mean(0)).sum()

@@ -45,6 +45,9 @@ class ServeEngine:
                  straggler_factor=8.0, max_retries=1, device="cuda"):
         self.cfg = cfg.replace(remat_policy="none")
         self.device = resolve_device(device, "ServeEngine")
+        # bf16 products accumulate in fp32, as the reference's dots do
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
         self.params = Mdl.cast_params(self.cfg, params, self.device)
         self.slots = slots
         self.max_len = max_len

@@ -1,0 +1,55 @@
+"""Gradient compression: int8 error-feedback all-reduce (twin of
+``repro.train.compression``).
+
+``ef_int8_psum`` quantizes a gradient per row to int8 with the residual
+carried to the next step (1-bit-Adam-style error feedback), cutting the
+bytes of a slow all-reduce hop 4x against fp32. The reference runs it
+under ``shard_map`` as a ``pmean`` over a mesh axis; the port runs it
+over a ``torch.distributed`` process group: an ``all_reduce`` of the
+dequantized tensor, divided by the group's size. The reference's
+``remesh`` (elastic re-sharding onto another mesh) has no counterpart
+on one card.
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.models.layers import tree_map
+
+
+def quantize_int8(x, axis=-1):
+    """Symmetric per-row int8 quantization. Returns (q, scale)."""
+    amax = x.abs().amax(dim=axis, keepdim=True)
+    scale = amax.clamp_min(1e-12) / 127.0
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_int8(q, scale):
+    return q.float() * scale
+
+
+def ef_compress(x, err):
+    """Error-feedback compression step: returns (decompressed, new_err)."""
+    y = x.float() + err
+    q, s = quantize_int8(y)
+    deq = dequantize_int8(q, s)
+    return deq, y - deq
+
+
+def ef_int8_psum(grad, err, group=None):
+    """The mean over ``group`` (default: the whole world) of every rank's
+    error-feedback-compressed ``grad``, and this rank's new error."""
+    deq, new_err = ef_compress(grad, err)
+    dist.all_reduce(deq, group=group)
+    return deq / dist.get_world_size(group), new_err
+
+
+def make_crosspod_grad_sync(group=None):
+    """``sync(grads, errs) -> (grads, errs)``: ``ef_int8_psum`` over
+    ``group`` on every leaf of a gradient tree (nested dicts)."""
+    def sync(grads, errs):
+        out = tree_map(lambda g, e: ef_int8_psum(g, e, group), grads, errs)
+        return (tree_map(lambda o: o[0], out), tree_map(lambda o: o[1], out))
+    return sync

@@ -33,7 +33,8 @@ def test_port_file_imports_no_jax_and_no_reference(path):
 
 def test_importing_the_engine_loads_no_jax():
     code = ("import sys, repro_torch.core.engine, repro_torch.convert, "
-            "repro_torch.models.model, repro_torch.serve.rag; "
+            "repro_torch.models.model, repro_torch.serve.rag, "
+            "repro_torch.train.train_loop, repro_torch.train.checkpoint; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True,
