@@ -5,15 +5,16 @@ their searches and their write paths (streaming inserts and deletes,
 MVCC consolidation), the partitioned build, the sharded search, the
 GPU baseline, the cost model, the LM serving path with retrieval-
 augmented serving over a live index, the MoE, SSM, hybrid, VLM and
-enc-dec serving paths at their published widths, and training.
+enc-dec serving paths at their published widths, training, and the
+dry run's step bundles beside their roofline bounds.
 
 Usage: python3 chip_smoke.py [--seed S] [--only PHASES]
 
 Phases, each printing JSON lines (any failure raises and exits non-zero;
 there is no CPU branch). ``--only`` runs a comma-separated subset of
 kernels, parity, write_parity, durability, main, tiered, consolidation,
-partitioned, distributed, baselines, calibrate, serve, families, train;
-the kernels line is printed only when all run.
+partitioned, distributed, baselines, calibrate, serve, families, train,
+launch; the kernels line is printed only when all run.
 
 1. device        card name and power limit (nvidia-smi), torch and CUDA.
 2. build         nvcc builds every kernel (l2_gather, pq_adc, row_gather,
@@ -156,6 +157,25 @@ the kernels line is printed only when all run.
                  (1 x 2,048 tokens): forward and backward ms, the scan's
                  chunk alone, peak bytes. ef_int8_psum in an NCCL group
                  of one rank equals ef_compress.
+17. launch       the dry run's step bundles (``launch.steps``) on the
+                 card, each built from a copy of its cell's SHAPES entry
+                 with a cut: smollm-135m train_4k at batch 8,
+                 qwen3-0.6b decode_32k at batch 8, falcon-mamba-7b
+                 decode_32k at its batch of 128, granite-moe-1b
+                 prefill_32k at batch 1. For each: the h100x1 dry run
+                 at that shape, ``materialize`` on the card, the
+                 bundle's output against the direct call bit for bit
+                 (``train_loop.make_step``, ``decode_step``,
+                 ``prefill``), FlopCounterMode on the card equal to the
+                 meta count, a warm-up and 5 steps timed with CUDA
+                 events, peak bytes, the roofline's terms and measured /
+                 bound. Then in an NCCL group of one rank: svfusion-
+                 msturing search_1k on one pod256 shard (781,250 x 100
+                 rows, degree 32, 1,024 queries, synthetic) against the
+                 direct sharded step, its l2_gather launches and
+                 l2_gather at D = 100 against its plain version and its
+                 bound; the SmolLM smoke loss with DTensor params on a
+                 (1, 1) mesh bit-equal to the plain loss; ``remesh``.
 
 Then the kernels line, the card line, and the final status line.
 """
@@ -180,7 +200,7 @@ FP32_FLOPS = 67e12            # H100 SXM fp32 outside the tensor cores
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 PHASES = ("kernels", "parity", "write_parity", "durability", "main",
           "tiered", "consolidation", "partitioned", "distributed",
-          "baselines", "calibrate", "serve", "families", "train")
+          "baselines", "calibrate", "serve", "families", "train", "launch")
 
 
 def emit(phase, **kw):
@@ -238,8 +258,6 @@ def phase_kernel(gen, dev):
     index's retrieval (serve phase): table [2^18, 576], ids [1024, beam x
     degree], which takes the kernel's ROWS_VEC path."""
     import torch
-    from repro_torch.kernels.l2_gather import kernel as K
-    from repro_torch.kernels.l2_gather.ref import l2_gather_ref
     rag = rag_index_config("cpu", 0)
     rows = {}
     for label, n, D, dtype, B, C in (
@@ -256,33 +274,45 @@ def phase_kernel(gen, dev):
         ids[torch.rand(B, C, generator=gen, device=dev) < 0.1] = -1
         ids[:, C // 2:C // 2 + 64] = ids[:, :64]          # duplicates
         ids[0, :4] = torch.tensor([0, n - 1, 0, -1], device=dev)
-        out = K.l2_gather(table, ids, q)
-        ref = l2_gather_ref(table, ids, q)
-        torch.cuda.synchronize()
-        tol = TOL[str(dtype).split(".")[1]]
-        bad = ids < 0
-        if not (torch.isinf(out[bad]).all() and (out[bad] > 0).all()):
-            raise AssertionError(f"{label}: invalid lanes are not +inf")
-        err = (out[~bad] - ref[~bad]).abs()
-        max_abs = err.max().item()
-        max_rel = (err / ref[~bad].abs().clamp_min(1e-30)).max().item()
-        if not bool((err <= tol * ref[~bad].abs() + tol * D).all()):
-            raise AssertionError(f"{label}: max abs err {max_abs} above "
-                                 f"rtol={tol}, atol={tol * D}")
-        ms = cuda_ms(lambda: K.l2_gather(table, ids, q), 30)
-        plain_ms = cuda_ms(lambda: l2_gather_ref(table, ids, q), 10)
-        bound_ms, bound_by = l2_gather_bound_ms(table, ids)
-        geo = K.launch_geometry(B, C, D, table.element_size())
-        rows[label] = dict(shape=[n, D, B, C], dtype=str(dtype),
-                           path=("rows", "rows_vec", "groups")[geo.path],
-                           max_abs_err=max_abs, max_rel_err=max_rel, tol=tol,
-                           ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by=bound_by)
-        emit("kernel", kernel="l2_gather", table=label, **rows[label])
-        del table, ids, out, ref, q
+        rows[label] = l2_gather_case(label, table, ids, q)
+        del table, ids, q
     if rows["rag"]["path"] != "rows_vec":
         raise AssertionError(f"the RAG shape took {rows['rag']['path']}")
     return rows
+
+
+def l2_gather_case(label, table, ids, q):
+    """l2_gather on the card against its plain version on ``table`` [n,
+    D], ``ids`` [B, C] (-1 lanes +inf) and ``q`` [B, D]: checked within
+    TOL of the dtype, timed beside the plain version and the bound;
+    emitted and returned as a row."""
+    import torch
+    from repro_torch.kernels.l2_gather import kernel as K
+    from repro_torch.kernels.l2_gather.ref import l2_gather_ref
+    (n, D), (B, C) = table.shape, ids.shape
+    out = K.l2_gather(table, ids, q)
+    ref = l2_gather_ref(table, ids, q)
+    torch.cuda.synchronize()
+    tol = TOL[str(table.dtype).split(".")[1]]
+    bad = ids < 0
+    if not (torch.isinf(out[bad]).all() and (out[bad] > 0).all()):
+        raise AssertionError(f"{label}: invalid lanes are not +inf")
+    err = (out[~bad] - ref[~bad]).abs()
+    max_abs = err.max().item()
+    max_rel = (err / ref[~bad].abs().clamp_min(1e-30)).max().item()
+    if not bool((err <= tol * ref[~bad].abs() + tol * D).all()):
+        raise AssertionError(f"{label}: max abs err {max_abs} above "
+                             f"rtol={tol}, atol={tol * D}")
+    bound_ms, bound_by = l2_gather_bound_ms(table, ids)
+    geo = K.launch_geometry(B, C, D, table.element_size())
+    row = dict(shape=[n, D, B, C], dtype=str(table.dtype),
+               path=("rows", "rows_vec", "groups")[geo.path],
+               max_abs_err=max_abs, max_rel_err=max_rel, tol=tol,
+               ms=cuda_ms(lambda: K.l2_gather(table, ids, q), 30),
+               plain_ms=cuda_ms(lambda: l2_gather_ref(table, ids, q), 10),
+               bound_ms=bound_ms, bound_by=bound_by)
+    emit("kernel", kernel="l2_gather", table=label, **row)
+    return row
 
 
 def ids_with_holes(gen, dev, B, C, n):
@@ -3343,6 +3373,270 @@ def phase_train(dev, seed):
     emit("train", seconds=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------------------
+# launch: the dry run's step bundles run on the card beside their roofline
+# ---------------------------------------------------------------------------
+
+# (arch, shape, the cut applied to a copy of its SHAPES / SVF_SHAPES entry,
+# why): each bundle is built through launch.steps from that copy
+LAUNCH_CELLS = (
+    ("smollm_135m", "train_4k", {"global_batch": 8},
+     "global batch 256 -> 8 (256 x 4,096 tokens do not fit one card)"),
+    ("qwen3_0p6b", "decode_32k", {"global_batch": 8},
+     "batch 128 -> 8 (the batch-128 KV cache is 481 GB)"),
+    ("falcon_mamba_7b", "decode_32k", {}, None),
+    ("granite_moe_1b", "prefill_32k", {"global_batch": 1},
+     "batch 32 -> 1 (one card)"),
+    ("svfusion_msturing", "search_1k", {"n": 781_250},
+     "N 200M -> 781,250 rows: one pod256 shard; synthetic vectors and "
+     "neighbour lists from the seed"))
+
+
+def event_ms(fn, steps):
+    """Milliseconds of each of ``steps`` calls of ``fn`` (CUDA events
+    around each; the next call starts after the last has finished)."""
+    import torch
+    times = []
+    for _ in range(steps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return times
+
+
+def _equal_trees(a, b, what):
+    """Raise unless the trees ``a`` and ``b`` hold equal tensors (compared
+    on their device: a decode cache is tens of GB)."""
+    import torch
+    from repro_torch.utils import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if len(la) != len(lb) or not all(
+            x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb)):
+        raise AssertionError(f"{what}: the bundle's output differs from "
+                             "the direct call")
+
+
+def launch_roofline(rec):
+    from repro_torch import roofline
+    t = roofline.terms(rec)
+    return dict(t_compute_ms=t["t_compute_s"] * 1e3,
+                t_memory_lower_ms=t["t_memory_lower_s"] * 1e3,
+                t_collective_ms=(t["t_collective_s"] * 1e3
+                                 if t["t_collective_s"] != "n/a" else "n/a"),
+                bound_ms=t["bound_s"] * 1e3, bound_by=t["dominant"])
+
+
+def launch_lm_cell(arch, shape, reduced, dev, seed, steps=5):
+    """One LM cell: its h100x1 dry run at the cut shape, the bundle's real
+    inputs on the card, the bundle's output against the direct call (bit
+    for bit), FlopCounterMode on the card against the meta count, and a
+    warm-up then ``steps`` timed steps beside the roofline bound."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch import dryrun, steps as Steps
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import tree_map
+    from repro_torch.train.train_loop import make_step
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(arch, shape, "h100x1", write=False)
+    if not rec["ok"]:
+        raise AssertionError(f"dry run of {arch} {shape.name}: "
+                             f"{rec['error']}")
+    bundle = Steps.build_bundle(arch, shape)
+    cfg = bundle.cfg
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    args = Steps.materialize(bundle, gen, dev)
+
+    # the direct call on the same inputs (decode writes its cache in
+    # place: the direct call gets a copy, the bundle the cache itself,
+    # whose later steps go on from there)
+    if bundle.kind == "train":
+        want = make_step(cfg, Steps.adam_config(cfg))(*args)
+    elif bundle.kind == "prefill":
+        want = M.prefill(cfg, args[0], args[1], shape.seq_len)
+    else:
+        want = M.decode_step(cfg, args[0], tree_map(lambda a: a.clone(),
+                                                    args[1]), args[2])
+    got = bundle.fn(*args)
+    _equal_trees(got, want, f"{arch} {shape.name}")
+    del got, want
+    with FlopCounterMode(display=False) as fc:           # on the card
+        bundle.fn(*args)
+    card_flops = int(fc.get_total_flops())
+    torch.cuda.synchronize()
+    state = list(args)
+
+    def step():
+        out = bundle.fn(*state)
+        if bundle.kind == "train":         # the next step from this one's
+            state[0], state[1] = out[0], out[1]
+    step()                                                  # warm-up
+    times = event_ms(step, steps)
+    peak = torch.cuda.max_memory_allocated() - before
+    p50 = float(np.percentile(times, 50))
+    roof = launch_roofline(rec)
+    emit("launch_cell", arch=arch, shape=shape.name, kind=bundle.kind,
+         global_batch=shape.global_batch, seq_len=shape.seq_len,
+         reduced=[reduced] if reduced else [], notes=bundle.notes,
+         step_ms=times, step_p50_ms=p50,
+         step_p99_ms=float(np.percentile(times, 99)),
+         peak_device_bytes=peak, allocated_before_bytes=before,
+         model_flops=rec["model_flops"], flops_counted_meta=rec[
+             "flops_counted"], flops_counted_card=card_flops,
+         memory=rec["memory"], **roof,
+         measured_over_bound=p50 / roof["bound_ms"],
+         equal_to_direct_call=True, seconds=time.perf_counter() - t0,
+         method=f"CUDA events around each of {steps} steps after a "
+         "warm-up", card=card_line())
+    if card_flops != rec["flops_counted"]:
+        raise AssertionError(f"{arch} {shape.name}: FlopCounterMode counts "
+                             f"{card_flops} on the card, {rec['flops_counted']}"
+                             " on meta tensors")
+    del args, state
+    torch.cuda.empty_cache()
+
+
+def launch_search_cell(arch, shape, reduced, dev, seed, steps=5):
+    """The SVFusion cell on one pod256 shard in an NCCL group of one rank:
+    its h100x1 dry run, the bundle against the direct sharded step (bit
+    for bit), l2_gather launches in the bundle's run, step times beside
+    the bound, and l2_gather at D = 100 against its plain version and
+    its bound. Returns (launches, the l2_gather row)."""
+    import torch
+    from repro_torch.core.distributed import (RankMesh,
+                                              make_distributed_search)
+    from repro_torch.kernels.l2_gather import kernel as K
+    from repro_torch.launch import dryrun, steps as Steps
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(arch, shape, "h100x1", write=False)
+    if not rec["ok"]:
+        raise AssertionError(f"dry run of {arch}: {rec['error']}")
+    rmesh = RankMesh((1, 1), ("data", "model"))
+    bundle = Steps.build_svfusion_bundle(shape, rmesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    idx, q, key = Steps.materialize(bundle, gen, dev)
+    K.launches = 0                    # the bundle's run alone
+    ids, dists = bundle.fn(idx, q, key)
+    torch.cuda.synchronize()
+    launched = K.launches
+    direct = make_distributed_search(
+        rmesh, Steps.SVF_PARAMS, data_axes=("data", "model"),
+        query_axis=None)(idx, q, seed=0)
+    _equal_trees((ids, dists), direct, f"{arch} {shape.name}")
+    if launched == 0:
+        raise AssertionError("the search bundle launched no l2_gather")
+    if not ((ids >= 0) & (ids < shape.n)).all():
+        raise AssertionError("the search bundle returned ids outside the "
+                             "shard")
+    bundle.fn(idx, q, key)                                  # warm-up
+    times = event_ms(lambda: bundle.fn(idx, q, key), steps)
+    peak = torch.cuda.max_memory_allocated() - before
+    p50 = float(np.percentile(times, 50))
+    roof = launch_roofline(rec)
+    # l2_gather at the step's shape: the shard's table, a round's ids
+    kid = ids_with_holes(gen, dev, shape.batch,
+                         Steps.SVF_PARAMS.beam * shape.degree, shape.n)
+    row = l2_gather_case("msturing_shard", idx["vectors"], kid, q)
+    emit("launch_cell", arch=arch, shape=shape.name, kind=bundle.kind,
+         rows=shape.n, dim=shape.dim, degree=shape.degree,
+         queries=shape.batch, reduced=[reduced], notes=bundle.notes,
+         step_ms=times, step_p50_ms=p50,
+         step_p99_ms=float(np.percentile(times, 99)),
+         peak_device_bytes=peak, allocated_before_bytes=before,
+         model_flops=rec["model_flops"],
+         flops_per_device=rec["flops_per_device"],
+         flops_counted="unavailable: the search syncs the host",
+         memory=rec["memory"], collectives=rec["collectives"], **roof,
+         measured_over_bound=p50 / roof["bound_ms"],
+         l2_gather_launches=launched, equal_to_direct_call=True,
+         seconds=time.perf_counter() - t0,
+         method=f"CUDA events around each of {steps} steps after a "
+         "warm-up", card=card_line())
+    del idx, q, kid
+    torch.cuda.empty_cache()
+    return launched, row
+
+
+def launch_dtensor(dev, seed):
+    """In the NCCL group of one rank: the SmolLM smoke loss with its params
+    and batch as DTensors on a (1, 1) (data, model) mesh, bit-equal to
+    the plain loss; ``remesh`` of a tree onto that mesh, values equal."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import load_smoke_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding as Sh
+    from repro_torch.models.layers import tree_map
+    from repro_torch.train.compression import remesh
+    torch.cuda.set_device(dev)
+    mesh = make_test_mesh((1, 1), ("data", "model"))
+    cfg = load_smoke_config("smollm_135m")
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+    tok = torch.randint(0, cfg.vocab, (8, 32), dtype=torch.int32, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(
+                            seed + 1))
+    batch = {"tokens": tok, "labels": tok}
+    plain = M.loss_fn(cfg, params, batch)
+    with Sh.use_mesh(mesh):
+        dp = tree_map(lambda a, s: Sh.NamedSharding(mesh, s).place(a),
+                      params, M.param_specs(cfg))
+        db = {k: Sh.NamedSharding(mesh, Sh.ax("batch", None)).place(v)
+              for k, v in batch.items()}
+        sharded = Sh.local(M.loss_fn(cfg, dp, db))
+    tree = {"w": torch.randn(8, 8, device=dev), "b": torch.ones(8, device=dev)}
+    spec = {"w": (("data",), ("model",)), "b": (("pod", "data"),)}
+    moved = remesh(tree, spec, mesh)
+    same = all(torch.equal(moved[k].full_tensor(), tree[k]) for k in tree)
+    emit("launch_dtensor", backend=dist.get_backend(), mesh=[1, 1],
+         plain_loss=plain.item(), dtensor_loss=sharded.item(),
+         bit_equal=bool(torch.equal(plain, sharded)),
+         dtensor_type=type(dp["tok"]["embed"]).__name__,
+         remesh_equal=same, remesh_mesh_size=moved["w"].device_mesh.size())
+    if not torch.equal(plain, sharded) or not same:
+        raise AssertionError("the DTensor loss or remesh differs on the "
+                             "card")
+
+
+def phase_launch(dev, seed):
+    """The launch step builders on the card: each LAUNCH_CELLS cell's
+    bundle from ``launch.steps`` at its cut shape, its h100x1 dry run and
+    roofline beside its measured step; then, in an NCCL group of one
+    rank, the SVFusion cell, the DTensor loss and ``remesh``. Returns
+    (l2_gather launches of the search bundle, the l2_gather row at
+    D = 100)."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import steps as Steps
+    t0 = time.perf_counter()
+    for arch, name, cut, reduced in LAUNCH_CELLS[:4]:
+        launch_lm_cell(arch, dataclasses.replace(SHAPES[name], **cut),
+                       reduced, dev, seed)
+    arch, name, cut, reduced = LAUNCH_CELLS[4]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        launched, row = launch_search_cell(
+            arch, dataclasses.replace(Steps.SVF_SHAPES[name], **cut),
+            reduced, dev, seed)
+        launch_dtensor(dev, seed)
+    finally:
+        dist.destroy_process_group()
+    emit("launch", seconds=time.perf_counter() - t0)
+    return launched, row
+
+
 def main():
     import torch
     ap = argparse.ArgumentParser()
@@ -3437,6 +3731,8 @@ def main():
         phase_families(dev, args.seed)
     if "train" in only:
         phase_train(dev, args.seed)
+    if "launch" in only:
+        l2_launch_launches, l2_msturing = phase_launch(dev, args.seed)
     emit("phases", ran=only, seconds=time.perf_counter() - t_run)
 
     if only == list(PHASES):
@@ -3449,9 +3745,11 @@ def main():
                  "kernel.py:54", launches=l2_launches, row=l2,
                  extra=dict(launches_build=l2_build_launches,
                             launches_rag=l2_rag_launches,
+                            launches_launch=l2_launch_launches,
                             **{f"{k}_{shape}": row[k]
                                for shape, row in (("build", l2_build),
-                                                  ("rag", l2_rows["rag"]))
+                                                  ("rag", l2_rows["rag"]),
+                                                  ("msturing", l2_msturing))
                                for k in ("ms", "plain_ms", "bound_ms",
                                          "max_abs_err")})),
             dict(name="pq_adc", replaces="src/repro/kernels/pq_adc/"

@@ -3,11 +3,13 @@
 ``jax.lax.top_k`` returns values best first and, among equal values, the
 lower index first; ``jnp.argsort`` is stable. ``torch.topk`` resolves
 ties in no fixed order, so every top-k and argsort of the port goes
-through here. Small inputs take one stable sort. Large rows (the build's
-[2048, N] distance blocks) take ``torch.topk`` for the k-th value ``t``,
-keep every lane strictly better than ``t``, and fill the remaining
-places with the lowest-index lanes equal to ``t``; only rows whose ties
-at ``t`` are ambiguous pay for the index scan.
+through here. Small inputs take one stable sort, as do the MoE
+router's narrow rows at any count (``largest_k_by_sort``: no
+data-dependent shape, so it runs on meta tensors). Large rows (the
+build's [2048, N] distance blocks) take ``torch.topk`` for the k-th
+value ``t``, keep every lane strictly better than ``t``, and fill the
+remaining places with the lowest-index lanes equal to ``t``; only rows
+whose ties at ``t`` are ambiguous pay for the index scan.
 """
 from __future__ import annotations
 
@@ -62,3 +64,10 @@ def largest_k(x, k):
     index first: ``lax.top_k(x, k)``."""
     vals, idx = smallest_k(-x, k)
     return -vals, idx
+
+
+def largest_k_by_sort(x, k):
+    """``largest_k`` by one stable sort of every row, whatever the row
+    count: for narrow rows (the router's experts)."""
+    vals, idx = torch.sort(-x, dim=-1, stable=True)
+    return -vals[..., :k], idx[..., :k]

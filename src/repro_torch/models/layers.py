@@ -14,9 +14,13 @@ RoPE rotates split halves in fp32; attention scores and softmax are
 fp32 with a -1e30 additive mask (not -inf), and the probabilities are
 cast to the query dtype before the PV product. Attention is written out
 rather than sent to ``scaled_dot_product_attention``, whose fused
-backends sum in another order. The reference's sharding constraints
-(``constrain``, ``weight_gather``, ``res_constrain``, ``sp_gather``) are
-identities on one card and have no counterpart here.
+backends sum in another order.
+
+The reference's sharding constraints (``constrain``, ``weight_gather``,
+``res_constrain``, ``sp_gather``) stand at the same points: identities on
+a plain tensor, a redistribution of a DTensor (``models.sharding``).
+Tensors built beside the activations (the RoPE tables, the mask) are
+lifted onto a DTensor's mesh, replicated.
 """
 from __future__ import annotations
 
@@ -27,6 +31,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
+
+from repro_torch.models.sharding import (ax, constrain, replicated_like,
+                                         weight_gather, whole_dim)
 
 NEG = -1e30          # the reference's additive mask value
 
@@ -48,9 +55,13 @@ def tree_map(fn, tree, *rest):
 
 
 def tree_leaves(tree) -> list:
+    """The leaves of nested dicts (keys in sorted order), tuples and
+    lists; a template's ``TSpec`` is a leaf and ``None`` is none."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
-    return [tree]
+    if isinstance(tree, (tuple, list)) and not isinstance(tree, TSpec):
+        return [x for t in tree for x in tree_leaves(t)]
+    return [] if tree is None else [tree]
 
 
 def init_from_template(gen: torch.Generator, template,
@@ -70,6 +81,34 @@ def init_from_template(gen: torch.Generator, template,
         return (torch.randn(t.shape, generator=gen, device=dev)
                 * t.scale).to(dtype)
     return tree_map(draw, template)
+
+
+def specs_from_template(template):
+    return tree_map(lambda t: ax(*t.axes), template)
+
+
+def abstract_from_template(template, dtype=torch.float32):
+    """The template's tensors on the ``meta`` device (no storage)."""
+    return tree_map(lambda t: torch.empty(t.shape, dtype=dtype,
+                                          device="meta"), template)
+
+
+def res_constrain(cfg, x):
+    """Residual-stream sharding constraint (ModelConfig.residual_shard)."""
+    if cfg.residual_shard == "seq":
+        return constrain(x, "batch", "tensor", None)
+    if cfg.residual_shard == "dmodel":
+        return constrain(x, "batch", None, "tensor")
+    return constrain(x, "batch", None, None)
+
+
+def sp_gather(cfg, h):
+    """Block-boundary gather: the seq- or dmodel-sharded activation
+    collected once, so that the projections that read it share one
+    all-gather."""
+    if cfg.residual_shard in ("seq", "dmodel"):
+        return constrain(h, "batch", None, None)
+    return h
 
 
 # ---------------------------------------------------------------------------
@@ -130,7 +169,7 @@ def _attn_core(q, k, v, bias):
     """q [B,S,H,D]; k,v [B,T,H,D]; bias broadcastable to [B,1,S,T] (fp32)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
-    scores = scores + bias
+    scores = scores + replicated_like(bias, scores)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhst,bthd->bshd", probs, v)
 
@@ -221,19 +260,27 @@ def attn_qkv(p, x, cfg, positions):
     B, S, _ = x.shape
     Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = x.dtype
-    q = (x @ p["wq"].to(dt)).reshape(B, S, Hq, Dh)
-    k = (x @ p["wk"].to(dt)).reshape(B, S, Hkv, Dh)
-    v = (x @ p["wv"].to(dt)).reshape(B, S, Hkv, Dh)
+    wq = weight_gather(cfg, p["wq"].to(dt), ("fsdp", "tensor"))
+    wk = weight_gather(cfg, p["wk"].to(dt), ("fsdp", "tensor"))
+    wv = weight_gather(cfg, p["wv"].to(dt), ("fsdp", "tensor"))
+    q = whole_dim(x @ wq, 2, Hq).reshape(B, S, Hq, Dh)
+    k = whole_dim(x @ wk, 2, Hkv).reshape(B, S, Hkv, Dh)
+    v = whole_dim(x @ wv, 2, Hkv).reshape(B, S, Hkv, Dh)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    cos, sin = rope_freqs(positions, Dh, cfg.rope_theta)
-    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+    cos, sin = (replicated_like(t, x)
+                for t in rope_freqs(positions, Dh, cfg.rope_theta))
+    q = constrain(apply_rope(q, cos, sin), "batch", None, "tensor", None)
+    return q, apply_rope(k, cos, sin), v
 
 
 def attn_out(p, o, cfg):
     B, S = o.shape[:2]
-    return o.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["wo"].to(o.dtype)
+    wo = weight_gather(cfg, p["wo"].to(o.dtype), ("tensor", "fsdp"))
+    o = whole_dim(o, 2, cfg.n_heads)
+    y = o.reshape(B, S, cfg.n_heads * cfg.head_dim) @ wo
+    return res_constrain(cfg, y)
 
 
 # ---------------------------------------------------------------------------
@@ -252,10 +299,13 @@ def mlp_template(cfg, stacked: Optional[int] = None, d_ff=None):
     }
 
 
-def mlp_apply(p, x):
+def mlp_apply(p, x, cfg):
     dt = x.dtype
-    wg, wu, wd = (p[k].to(dt) for k in ("w_gate", "w_up", "w_down"))
-    return (F.silu(x @ wg) * (x @ wu)) @ wd
+    wg = weight_gather(cfg, p["w_gate"].to(dt), ("fsdp", "tensor"))
+    wu = weight_gather(cfg, p["w_up"].to(dt), ("fsdp", "tensor"))
+    wd = weight_gather(cfg, p["w_down"].to(dt), ("tensor", "fsdp"))
+    h = constrain(F.silu(x @ wg) * (x @ wu), "batch", None, "tensor")
+    return res_constrain(cfg, h @ wd)
 
 
 # ---------------------------------------------------------------------------
@@ -274,14 +324,20 @@ def embed_template(cfg):
 
 
 def embed_tokens(p, tokens, dtype):
-    # gather, then cast: the same values as casting the table first
-    return F.embedding(tokens.long(), p["embed"]).to(dtype)
+    """Rows of the table for ``tokens``, cast to ``dtype`` (gather, then
+    cast: the same values as casting the table first). A DTensor table is
+    gathered whole first: DTensor's vocab-parallel embedding mishandles
+    batch-sharded ids."""
+    table = constrain(p["embed"], None, None)
+    emb = F.embedding(replicated_like(tokens, table).long(), table)
+    emb = emb.to(dtype)
+    return constrain(emb, "batch", None, None)
 
 
 def lm_logits(p, x, cfg):
     """Logits over the padded vocabulary (``cfg.padded_vocab`` wide)."""
     w = p["head"] if not cfg.tie_embeddings else p["embed"].T
-    return x @ w.to(x.dtype)
+    return constrain(x @ w.to(x.dtype), "batch", None, "tensor")
 
 
 # ---------------------------------------------------------------------------
@@ -292,13 +348,17 @@ def softmax_xent(logits, labels, mask=None):
     """logits [B,S,V], labels [B,S] -> the mean token cross-entropy (fp32).
     The logsumexp runs over all V columns, the padding columns of
     ``lm_logits`` included, as the reference's does; with ``mask`` [B,S]
-    the mean is over the masked-in tokens (at least one)."""
-    logits = logits.float()
-    labels = torch.as_tensor(labels, device=logits.device).long()
+    the mean is over the masked-in tokens (at least one). DTensor logits
+    are gathered whole on the vocabulary first (DTensor's gather from a
+    vocab-sharded tensor mishandles batch-sharded labels)."""
+    logits = constrain(logits.float(), "batch", None, None)
+    labels = replicated_like(torch.as_tensor(labels, device=logits.device),
+                             logits).long()
     loss = torch.logsumexp(logits, -1) - logits.gather(
         -1, labels[..., None])[..., 0]
     if mask is not None:
-        mask = torch.as_tensor(mask, device=logits.device).float()
+        mask = replicated_like(torch.as_tensor(mask, device=logits.device),
+                               logits).float()
         return (loss * mask).sum() / mask.sum().clamp_min(1)
     return loss.mean()
 

@@ -19,7 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from repro_torch.models.layers import TSpec
+from repro_torch.models.layers import TSpec, res_constrain
+from repro_torch.models.sharding import constrain, weight_gather
 
 
 def ssm_template(cfg, stacked=None, d_model=None):
@@ -115,7 +116,9 @@ def mamba_mixer(p, x, cfg, state=None):
     B, S, _ = x.shape
     Din = p["in_proj"].shape[-1] // 2
     N = cfg.d_state
-    xr, z = torch.chunk(x @ p["in_proj"].to(dt), 2, dim=-1)
+    w_in = weight_gather(cfg, p["in_proj"].to(dt), ("fsdp", "tensor"))
+    xr, z = torch.chunk(x @ w_in, 2, dim=-1)
+    xr = constrain(xr, "batch", None, "tensor")
     if state is None:
         h, conv0 = x.new_zeros(B, Din, N, dtype=torch.float32), None
     else:
@@ -136,8 +139,9 @@ def mamba_mixer(p, x, cfg, state=None):
     y = torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]
 
     y = y + p["D"].float() * xc.float()
-    y = y.to(dt) * F.silu(z)
-    return y @ p["out_proj"].to(dt), (h, conv_state)
+    y = constrain(y.to(dt) * F.silu(z), "batch", None, "tensor")
+    w_out = weight_gather(cfg, p["out_proj"].to(dt), ("tensor", "fsdp"))
+    return res_constrain(cfg, y @ w_out), (h, conv_state)
 
 
 def mamba_step(p, x, cfg, state):

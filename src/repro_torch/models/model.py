@@ -28,8 +28,9 @@ from repro_torch.models.layers import (NEG, TSpec, attention, attn_out,
                                        attn_qkv, attn_template,
                                        decode_attention, embed_template,
                                        embed_tokens, lm_logits, maybe_remat,
-                                       mlp_apply, mlp_template, rms_norm,
-                                       softmax_xent)
+                                       mlp_apply, mlp_template, res_constrain,
+                                       rms_norm, softmax_xent, sp_gather)
+from repro_torch.models.sharding import ax, constrain
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -140,6 +141,16 @@ def init_params(cfg, gen: torch.Generator, dtype=None):
                                   dtype_of(dtype or cfg.param_dtype))
 
 
+def param_specs(cfg):
+    return Lyr.specs_from_template(build_templates(cfg))
+
+
+def abstract_params(cfg, dtype=None):
+    """The params' shapes and dtype as ``meta`` tensors."""
+    return Lyr.abstract_from_template(build_templates(cfg),
+                                      dtype_of(dtype or cfg.param_dtype))
+
+
 def cast_params(cfg, params, device=None):
     """The params on ``device`` with every fp32 leaf cast to ``cfg.dtype``,
     once (the serving engines call it when they are built). Every use of
@@ -173,26 +184,33 @@ def _unstack(tree) -> list:
 # ---------------------------------------------------------------------------
 
 def dense_layer_fwd(cfg, p, x, positions, *, window=0, collect=False):
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    x = res_constrain(cfg, x)
+    h = sp_gather(cfg, rms_norm(x, p["ln1"], cfg.norm_eps))
     q, k, v = attn_qkv(p["attn"], h, cfg, positions)
     o = attention(q, k, v, causal=True, window=window, chunk=cfg.attn_chunk)
     x = x + attn_out(p["attn"], o, cfg)
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    h = sp_gather(cfg, rms_norm(x, p["ln2"], cfg.norm_eps))
     if cfg.family == "moe" or "router" in p["mlp"]:
         x = x + Moe.moe_apply(p["mlp"], h, cfg)
     else:
-        x = x + mlp_apply(p["mlp"], h)
-    return (x, (k, v)) if collect else (x, None)
+        x = x + mlp_apply(p["mlp"], h, cfg)
+    if collect:   # the prefill KV sharded like the decode cache
+        k = constrain(k, "batch", "kv_seq", None, None)
+        v = constrain(v, "batch", "kv_seq", None, None)
+        return x, (k, v)
+    return x, None
 
 
 def ssm_layer_fwd(cfg, p, x, *, collect=False):
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    x = res_constrain(cfg, x)
+    h = sp_gather(cfg, rms_norm(x, p["ln1"], cfg.norm_eps))
     y, state = M.mamba_mixer(p["ssm"], h, cfg)
     return (x + y, state) if collect else (x + y, None)
 
 
 def hybrid_layer_fwd(cfg, p, x, positions, *, window, collect=False):
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    x = res_constrain(cfg, x)
+    h = sp_gather(cfg, rms_norm(x, p["ln1"], cfg.norm_eps))
     q, k, v = attn_qkv(p["attn"], h, cfg, positions)
     o = attention(q, k, v, causal=True, window=window, chunk=cfg.attn_chunk)
     ao = attn_out(p["attn"], o, cfg)
@@ -200,35 +218,46 @@ def hybrid_layer_fwd(cfg, p, x, positions, *, window, collect=False):
     fused = 0.5 * (rms_norm(ao, p["ln_attn"], cfg.norm_eps)
                    + rms_norm(so, p["ln_ssm"], cfg.norm_eps))
     x = x + fused
-    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + mlp_apply(p["mlp"], h2)
-    return (x, ((k, v), state)) if collect else (x, None)
+    h2 = sp_gather(cfg, rms_norm(x, p["ln2"], cfg.norm_eps))
+    x = x + mlp_apply(p["mlp"], h2, cfg)
+    if collect:
+        k = constrain(k, "batch", "kv_seq", None, None)
+        v = constrain(v, "batch", "kv_seq", None, None)
+        return x, ((k, v), state)
+    return x, None
 
 
 def enc_layer_fwd(cfg, p, x, positions):
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    x = res_constrain(cfg, x)
+    h = sp_gather(cfg, rms_norm(x, p["ln1"], cfg.norm_eps))
     q, k, v = attn_qkv(p["attn"], h, cfg, positions)
     o = attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
     x = x + attn_out(p["attn"], o, cfg)
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h)
+    h = sp_gather(cfg, rms_norm(x, p["ln2"], cfg.norm_eps))
+    return x + mlp_apply(p["mlp"], h, cfg)
 
 
 def dec_layer_fwd(cfg, p, x, memory, positions, mem_positions, *,
                   collect=False):
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    x = res_constrain(cfg, x)
+    h = sp_gather(cfg, rms_norm(x, p["ln1"], cfg.norm_eps))
     q, k, v = attn_qkv(p["attn"], h, cfg, positions)
     o = attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
     x = x + attn_out(p["attn"], o, cfg)
-    h = rms_norm(x, p["lnx"], cfg.norm_eps)
+    h = sp_gather(cfg, rms_norm(x, p["lnx"], cfg.norm_eps))
     qx, _, _ = attn_qkv(p["xattn"], h, cfg, positions)
     # cross KV come from the encoder memory, RoPE'd at its own positions
     _, mk, mv = attn_qkv(p["xattn"], memory, cfg, mem_positions)
     ox = attention(qx, mk, mv, causal=False, chunk=cfg.attn_chunk)
     x = x + attn_out(p["xattn"], ox, cfg)
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + mlp_apply(p["mlp"], h)
-    return (x, (k, v, mk, mv)) if collect else (x, None)
+    h = sp_gather(cfg, rms_norm(x, p["ln2"], cfg.norm_eps))
+    x = x + mlp_apply(p["mlp"], h, cfg)
+    if collect:
+        k = constrain(k, "batch", None, None, None)
+        mk = constrain(mk, "batch", "kv_seq", None, None)
+        mv = constrain(mv, "batch", "kv_seq", None, None)
+        return x, (k, v, mk, mv)
+    return x, None
 
 
 def _stack(parts):
@@ -395,6 +424,31 @@ def init_cache(cfg, batch, max_len, dtype=None, device="cuda"):
     raise ValueError(fam)
 
 
+def cache_specs(cfg, long_context=False):
+    """Specs of ``init_cache``'s tree. The KV sequence dim is sharded
+    (logical kv_seq, or kv_seq_long for the long-context cell); the
+    hybrid's window ring on kv_seq."""
+    seq_ax = "kv_seq_long" if long_context else "kv_seq"
+    kvs = ax(None, "batch", seq_ax, None, None)
+    h = ax(None, "batch", "tensor", None)
+    conv = ax(None, "batch", None, "tensor")
+    fam = cfg.family
+    if fam in ("dense", "moe", "vlm"):
+        return {"k": kvs, "v": kvs, "len": ax()}
+    if fam == "ssm":
+        return {"h": h, "conv": conv, "len": ax()}
+    if fam == "hybrid":
+        win = ax(None, "batch", "kv_seq", None, None)
+        return {"kg": kvs, "vg": kvs, "kw": win, "vw": win,
+                "wpos": ax(None, "batch", "kv_seq"), "hg": h, "convg": conv,
+                "hw": h, "convw": conv, "len": ax()}
+    if fam == "encdec":
+        dec = ax(None, "batch", None, None, None)
+        return {"k": dec, "v": dec, "ck": kvs, "cv": kvs,
+                "enc_len": ax(), "len": ax()}
+    raise ValueError(fam)
+
+
 # ---------------------------------------------------------------------------
 # Prefill
 # ---------------------------------------------------------------------------
@@ -499,9 +553,11 @@ def _decode_attn_layer(cfg, p, x, k_cache, v_cache, pos, kv_len, *,
     return decode_attention(q, k_cache, v_cache, kv_len)
 
 
-def decode_step(cfg, params, cache, token):
+def decode_step(cfg, params, cache, token, patches=None):
     """One-token decode. token [B,1] int. Returns (logits [B,1,V], cache)
-    with the caches written in place and ``len`` advanced by one."""
+    with the caches written in place and ``len`` advanced by one.
+    ``patches`` is not read (the reference's signature: a vlm's patches
+    went in with the prefill)."""
     dt = dtype_of(cfg.dtype)
     fam = cfg.family
     dev = params["tok"]["embed"].device
@@ -519,7 +575,7 @@ def decode_step(cfg, params, cache, token):
             if "router" in p["mlp"]:
                 x = x + Moe.moe_apply(p["mlp"], h, cfg.replace(moe_group=1))
             else:
-                x = x + mlp_apply(p["mlp"], h)
+                x = x + mlp_apply(p["mlp"], h, cfg)
 
     elif fam == "ssm":
         for i, p in enumerate(_unstack(_cast_once(cfg, params["layers"]))):
@@ -550,7 +606,8 @@ def decode_step(cfg, params, cache, token):
             fused = 0.5 * (rms_norm(ao, p["ln_attn"], cfg.norm_eps)
                            + rms_norm(so, p["ln_ssm"], cfg.norm_eps))
             x = x + fused
-            x = x + mlp_apply(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
+            x = x + mlp_apply(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps),
+                              cfg)
 
     elif fam == "encdec":
         positions = pos[None, None] if pos.ndim == 0 else pos[:, None]
@@ -564,7 +621,8 @@ def decode_step(cfg, params, cache, token):
             ox = decode_attention(qx, cache["ck"][i], cache["cv"][i],
                                   cache["enc_len"])
             x = x + attn_out(p["xattn"], ox, cfg)
-            x = x + mlp_apply(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
+            x = x + mlp_apply(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps),
+                              cfg)
     else:
         raise ValueError(fam)
 

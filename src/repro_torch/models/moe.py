@@ -5,14 +5,16 @@ Two dispatch implementations:
 * ``capacity`` — GShard/Switch-style grouped capacity dispatch. Tokens
   over an expert's capacity are dropped (the residual passes them
   through). The reference builds one-hot dispatch and combine tensors
-  and contracts them; the port computes each kept (token, expert) pair's
+  and contracts them; the port computes each (token, expert) claim's
   place in the expert's buffer and moves the token there by index,
-  which fills the same ``[G, E, C, D]`` buffers.
+  which fills the same ``[G, E, C, D]`` buffers. A dropped claim goes to
+  a spare place C that is sliced off, so that every shape is fixed by
+  the config (no host sync, and the step runs on fake tensors).
 * ``dense`` — computes every expert for every token and combines with
   the router weights. Exact (no dropping); the correctness oracle.
 
-Top-k routing goes through ``core.topk.largest_k``: ties take the lower
-expert index, as ``lax.top_k`` does.
+Top-k routing goes through ``core.topk.largest_k_by_sort``: ties take
+the lower expert index, as ``lax.top_k`` does.
 """
 from __future__ import annotations
 
@@ -21,8 +23,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.topk import largest_k
+from repro_torch.core.topk import largest_k_by_sort
 from repro_torch.models.layers import TSpec
+from repro_torch.models.sharding import constrain, weight_gather
 
 
 def moe_template(cfg, stacked=None):
@@ -45,17 +48,20 @@ def _router_probs(p, x):
     return torch.softmax(logits, dim=-1)              # [..., E] fp32
 
 
-def _expert_ffn(p, xe, dt):
+def _expert_ffn(p, xe, dt, cfg):
     """xe [..., E, C, D] per-expert token blocks -> same shape."""
-    wg, wu, wd = (p[k].to(dt) for k in ("w_gate", "w_up", "w_down"))
-    return (F.silu(xe @ wg) * (xe @ wu)) @ wd
+    wg = weight_gather(cfg, p["w_gate"].to(dt), ("expert", "fsdp", "tensor"))
+    wu = weight_gather(cfg, p["w_up"].to(dt), ("expert", "fsdp", "tensor"))
+    wd = weight_gather(cfg, p["w_down"].to(dt), ("expert", "tensor", "fsdp"))
+    h = constrain(F.silu(xe @ wg) * (xe @ wu), "batch", None, None, "tensor")
+    return h @ wd
 
 
 def moe_apply_dense(p, x, cfg):
     """Exact dense-compute MoE (oracle)."""
     dt = x.dtype
     probs = _router_probs(p, x)                       # [B,S,E]
-    topv, topi = largest_k(probs, cfg.top_k)
+    topv, topi = largest_k_by_sort(probs, cfg.top_k)
     gates = torch.zeros_like(probs).scatter(-1, topi, topv)
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
     h = torch.einsum("bsd,edf->bsef", x, p["w_gate"].to(dt))
@@ -97,23 +103,29 @@ def moe_apply_capacity(p, x, cfg):
 
     xt = x.reshape(G, g, D)
     probs = _router_probs(p, xt)                      # [G,g,E] fp32
-    topv, topi = largest_k(probs, K)                  # [G,g,K]
+    topv, topi = largest_k_by_sort(probs, K)          # [G,g,K]
     topv = topv / topv.sum(-1, keepdim=True).clamp_min(1e-9)
     pos, keep = capacity_slots(topi, E, C)
 
-    # a token routes to each expert at most once, so every kept
-    # (group, expert, place) is written once
-    gi, si, ki = keep.nonzero(as_tuple=True)
-    ei, ci = topi[gi, si, ki], pos[gi, si, ki]
-    xe = x.new_zeros(G, E, C, D)
-    xe[gi, ei, ci] = xt[gi, si]
-    ye = _expert_ffn(p, xe, dt)                       # [G,E,C,D]
+    # each claim's row in the [G, E, C+1] places: a token routes to each
+    # expert at most once, so every kept place is written once; dropped
+    # claims all land in their expert's spare place C
+    place = torch.where(keep, pos, C)
+    grp = torch.arange(G, device=x.device)[:, None, None]
+    row = ((grp * E + topi) * (C + 1) + place).reshape(-1)
+    src = xt[:, :, None, :].expand(G, g, K, D).reshape(-1, D)
+    xe = x.new_zeros(G * E * (C + 1), D).index_put((row,), src)
+    xe = xe.view(G, E, C + 1, D)[:, :, :C]
+    xe = constrain(xe, "batch", None, None, None)
+    ye = _expert_ffn(p, xe, dt, cfg)                  # [G,E,C,D]
     # combine in fp32 (a product of two dt values is exact there), one
-    # rounding to dt at the end
+    # rounding to dt at the end; the spare places read zeros
     w = topv.to(dt).float() * keep
-    yk = ye.new_zeros(G, g, K, D, dtype=torch.float32)
-    yk[gi, si, ki] = ye[gi, ei, ci].float()
-    return (w[..., None] * yk).sum(2).to(dt).reshape(B, S, D)
+    ye = torch.cat([ye.float(), ye.new_zeros(G, E, 1, D, dtype=torch.float32)],
+                   dim=2)
+    yk = ye.reshape(-1, D)[row].view(G, g, K, D)
+    y = (w[..., None] * yk).sum(2).to(dt).reshape(B, S, D)
+    return constrain(y, "batch", None, None)
 
 
 def moe_apply(p, x, cfg):

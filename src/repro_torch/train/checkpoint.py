@@ -31,6 +31,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.models.sharding import NamedSharding
+
 
 def _items(tree):
     """(key, child) pairs of an inner node in JAX's order, else None."""
@@ -74,6 +76,20 @@ def _unflatten(like, leaves, device):
     if torch.is_tensor(like):
         return torch.as_tensor(arr, device=device or like.device)
     return arr
+
+
+def _place(tree, shardings):
+    """Each leaf of ``tree`` placed by the ``NamedSharding`` at its place
+    in ``shardings`` (a None there leaves the subtree as it is)."""
+    if shardings is None:
+        return tree
+    if isinstance(shardings, NamedSharding):
+        return shardings.place(torch.as_tensor(tree))
+    if isinstance(tree, dict):
+        return {k: _place(tree[k], shardings[k]) for k in tree}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_place(x, sh) for x, sh in zip(tree, shardings)))
+    return type(tree)(_place(x, sh) for x, sh in zip(tree, shardings))
 
 
 def _host(x):
@@ -165,11 +181,14 @@ class CheckpointManager:
         except (OSError, EOFError, ValueError, KeyError):
             return None
 
-    def restore(self, like: Any, step: Optional[int] = None, device=None):
+    def restore(self, like: Any, step: Optional[int] = None, device=None,
+                shardings: Any = None):
         """Restore into the structure of ``like``, each tensor leaf on
-        ``device`` (default: the device of ``like``'s leaf). Falls back
-        through older checkpoints if the newest is corrupt. Returns
-        (step, tree) or (None, None) if nothing restorable."""
+        ``device`` (default: the device of ``like``'s leaf); with
+        ``shardings`` (``like``'s structure, ``NamedSharding`` leaves) each
+        leaf is placed as a DTensor. Falls back through older checkpoints
+        if the newest is corrupt. Returns (step, tree) or (None, None) if
+        nothing restorable."""
         candidates = [step] if step is not None \
             else list(reversed(self.all_steps()))
         n_like = len(_flatten_with_paths(like)[1])
@@ -180,5 +199,7 @@ class CheckpointManager:
             d = self.dir / f"step_{s:08d}"
             leaves = iter([np.load(d / l["file"])
                            for l in manifest["leaves"]])
-            return s, _unflatten(like, leaves, device)
+            tree = _unflatten(like, leaves, device)
+            return s, (tree if shardings is None
+                       else _place(tree, shardings))
         return None, None

@@ -6,9 +6,8 @@ carried to the next step (1-bit-Adam-style error feedback), cutting the
 bytes of a slow all-reduce hop 4x against fp32. The reference runs it
 under ``shard_map`` as a ``pmean`` over a mesh axis; the port runs it
 over a ``torch.distributed`` process group: an ``all_reduce`` of the
-dequantized tensor, divided by the group's size. The reference's
-``remesh`` (elastic re-sharding onto another mesh) has no counterpart
-on one card.
+dequantized tensor, divided by the group's size. ``remesh`` moves a
+tree of DTensors onto another ``DeviceMesh`` (elastic re-sharding).
 """
 from __future__ import annotations
 
@@ -16,6 +15,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.models.layers import tree_map
+from repro_torch.models.sharding import NamedSharding, local
 
 
 def quantize_int8(x, axis=-1):
@@ -53,3 +53,21 @@ def make_crosspod_grad_sync(group=None):
         out = tree_map(lambda g, e: ef_int8_psum(g, e, group), grads, errs)
         return (tree_map(lambda o: o[0], out), tree_map(lambda o: o[1], out))
     return sync
+
+
+# ---------------------------------------------------------------------------
+# Elastic re-mesh
+# ---------------------------------------------------------------------------
+
+def remesh(tree, spec_tree, new_mesh):
+    """Every leaf of ``tree`` (nested dicts of tensors or DTensors, each
+    whole on every rank) re-placed onto ``new_mesh`` (a ``DeviceMesh``)
+    with the same specs: the state half of elastic scaling. Spec axes the
+    new mesh lacks fall back to replicated on those dims. Every rank of
+    the old mesh calls it (a DTensor leaf is gathered there first)."""
+    names = set(new_mesh.mesh_dim_names)
+
+    def place(x, spec):
+        kept = tuple(tuple(a for a in part if a in names) for part in spec)
+        return NamedSharding(new_mesh, kept).place(local(x))
+    return tree_map(place, tree, spec_tree)

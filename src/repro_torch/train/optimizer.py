@@ -6,8 +6,8 @@ moments are kept in ``moment_dtype`` (fp32). Every step follows the
 reference's order of operations: the global norm of the gradients, the
 clip scale ``min(1, grad_clip / (norm + 1e-9))``, the bias-corrected
 moments, then the decoupled weight decay ``p * (1 - lr * wd) - lr * d``.
-The reference's ``adam_specs`` (the moments' sharding) has no
-counterpart on one card.
+ZeRO-style sharding falls out of FSDP: both moments take the params'
+specs (``adam_specs``).
 """
 from __future__ import annotations
 
@@ -46,6 +46,11 @@ def init_adam(params, cfg: AdamConfig) -> AdamState:
     step = torch.zeros((), dtype=torch.int32,
                        device=tree_leaves(params)[0].device)
     return AdamState(step, tree_map(zeros, params), tree_map(zeros, params))
+
+
+def adam_specs(param_specs) -> AdamState:
+    """Optimizer-state specs mirroring the parameter specs."""
+    return AdamState((), param_specs, param_specs)
 
 
 def schedule(step, cfg: AdamConfig):

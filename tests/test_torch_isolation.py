@@ -34,7 +34,10 @@ def test_port_file_imports_no_jax_and_no_reference(path):
 def test_importing_the_engine_loads_no_jax():
     code = ("import sys, repro_torch.core.engine, repro_torch.convert, "
             "repro_torch.models.model, repro_torch.serve.rag, "
-            "repro_torch.train.train_loop, repro_torch.train.checkpoint; "
+            "repro_torch.train.train_loop, repro_torch.train.checkpoint, "
+            "repro_torch.models.sharding, repro_torch.launch.mesh, "
+            "repro_torch.launch.steps, repro_torch.launch.dryrun, "
+            "repro_torch.roofline, repro_torch.report, repro_torch.utils; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True,

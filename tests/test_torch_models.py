@@ -234,7 +234,8 @@ def test_mlp_embed_and_logits(dt, arch):
     rng = np.random.default_rng(4)
     jx, tx = both(rng.normal(size=(2, 3, cfg.d_model)), dt)
     close(TL.mlp_apply({k: v[0] for k, v in tp["layers"]["mlp"].items()},
-                       tx), JL.mlp_apply(p0, jx), TOL[dt])
+                       tx, TCfg.load_smoke_config(arch)),
+          JL.mlp_apply(p0, jx), TOL[dt])
     tok = rng.integers(0, cfg.vocab, (2, 5)).astype(np.int32)
     emb = TL.embed_tokens(tp["tok"], torch.as_tensor(tok), TDT[dt])
     assert emb.dtype == TDT[dt]

@@ -19,7 +19,7 @@ from repro.models import model as JM
 from repro.models import moe as JMoe
 from repro_torch import convert
 from repro_torch.configs.base import load_smoke_config as t_smoke
-from repro_torch.core.topk import largest_k
+from repro_torch.core.topk import largest_k, largest_k_by_sort
 from repro_torch.models import moe as TMoe
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -57,9 +57,9 @@ def recording(monkeypatch):
         seen["ref"] = np.asarray(xe.astype(jnp.float32))
         return j_ffn(p, xe, dt, cfg)
 
-    def t_rec(p, xe, dt):
+    def t_rec(p, xe, dt, cfg):
         seen["port"] = xe.float().numpy()
-        return t_ffn(p, xe, dt)
+        return t_ffn(p, xe, dt, cfg)
     monkeypatch.setattr(JMoe, "_expert_ffn", j_rec)
     monkeypatch.setattr(TMoe, "_expert_ffn", t_rec)
     return seen
@@ -130,7 +130,7 @@ def test_tied_router_takes_the_lower_expert(monkeypatch, impl):
     jx, tx = inputs(cfg, "float32")
     probs = TMoe._router_probs(tp, tx)
     assert torch.equal(probs[..., ::2], probs[..., 1::2])
-    top = largest_k(probs, cfg.top_k)[1]                   # top_k = 2
+    top = largest_k_by_sort(probs, cfg.top_k)[1]           # top_k = 2
     assert (top[..., 0] % 2 == 0).all() and (top[..., 1] == top[..., 0] + 1
                                              ).all()
     seen = recording(monkeypatch)
@@ -138,3 +138,22 @@ def test_tied_router_takes_the_lower_expert(monkeypatch, impl):
           TOL["float32"])
     if impl == "capacity":
         np.testing.assert_array_equal(seen["port"], seen["ref"])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_router_top_k_by_sort_matches_lax_top_k(seed):
+    """The router's top-k (one stable sort) picks what ``lax.top_k`` and
+    ``largest_k`` pick on narrow rows full of ties, and needs no data to
+    know its shape: it runs on meta tensors past any size threshold."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 4, (3, 50, 8)).astype(np.float32)
+    for k in (1, 2, 8):
+        v, i = largest_k_by_sort(torch.from_numpy(x), k)
+        wv, wi = jax.lax.top_k(jnp.asarray(x), k)
+        np.testing.assert_array_equal(i.numpy(), np.asarray(wi))
+        np.testing.assert_array_equal(v.numpy(), np.asarray(wv))
+        lv, li = largest_k(torch.from_numpy(x), k)
+        assert torch.equal(li, i) and torch.equal(lv, v)
+    m = torch.empty((4, 1 << 21, 8), device="meta")      # 2^26 elements
+    v, i = largest_k_by_sort(m, 2)
+    assert v.shape == i.shape == (4, 1 << 21, 2) and i.dtype == torch.int64
