@@ -5,8 +5,9 @@ their searches and their write paths (streaming inserts and deletes,
 MVCC consolidation), the partitioned build, the sharded search, the
 GPU baseline, the cost model, the LM serving path with retrieval-
 augmented serving over a live index, the MoE, SSM, hybrid, VLM and
-enc-dec serving paths at their published widths, training, and the
-dry run's step bundles beside their roofline bounds.
+enc-dec serving paths at their published widths, training, the dry
+run's step bundles beside their roofline bounds, and every LM family's
+steps run sharded under DTensor.
 
 Usage: python3 chip_smoke.py [--seed S] [--only PHASES]
 
@@ -14,7 +15,7 @@ Phases, each printing JSON lines (any failure raises and exits non-zero;
 there is no CPU branch). ``--only`` runs a comma-separated subset of
 kernels, parity, write_parity, durability, main, tiered, consolidation,
 partitioned, distributed, baselines, calibrate, serve, families, train,
-launch; the kernels line is printed only when all run.
+launch, sharded; the kernels line is printed only when all run.
 
 1. device        card name and power limit (nvidia-smi), torch and CUDA.
 2. build         nvcc builds every kernel (l2_gather, pq_adc, row_gather,
@@ -68,12 +69,12 @@ launch; the kernels line is printed only when all run.
                  launches are read around them alone. Then its stats, a
                  profile of three batches, a wall-time split by stage,
                  filtered requests at ~50% (graph path) and ~2% (scan)
-                 selectivity with their launches read alone, 4 write-
+                 selectivity with their launches read alone, 2 write-
                  stream steps of 2,048 rows (WAL bytes and fsyncs), and
                  a close, a reopen from the disk tier alone and the same
                  searches, identical.
 9. consolidation the three-tier background consolidation, with one more
-                 stream step in its window, on a 131,072-row index of the
+                 stream step in its window, on a 65,536-row index of the
                  same configuration (the host pass is a Python loop over
                  256-row chunks, ~0.2 s each: about 14 minutes at 1M).
 10. partitioned the partitioned build (4 partitions, 256 cross samples):
@@ -167,15 +168,30 @@ launch; the kernels line is printed only when all run.
                  bundle's output against the direct call bit for bit
                  (``train_loop.make_step``, ``decode_step``,
                  ``prefill``), FlopCounterMode on the card equal to the
-                 meta count, a warm-up and 5 steps timed with CUDA
-                 events, peak bytes, the roofline's terms and measured /
-                 bound. Then in an NCCL group of one rank: svfusion-
+                 meta count, a warm-up and 5 steps (granite's: 2) timed
+                 with CUDA events, peak bytes, the roofline's terms and
+                 measured / bound. Then in an NCCL group of one rank: svfusion-
                  msturing search_1k on one pod256 shard (781,250 x 100
                  rows, degree 32, 1,024 queries, synthetic) against the
                  direct sharded step, its l2_gather launches and
                  l2_gather at D = 100 against its plain version and its
                  bound; the SmolLM smoke loss with DTensor params on a
                  (1, 1) mesh bit-equal to the plain loss; ``remesh``.
+18. sharded      every LM family's train (loss, gradients, one AdamW
+                 step), prefill and two decode steps through
+                 ``launch.steps.run_sharded`` on a (2, 2) (data, model)
+                 mesh, at the smoke configs in fp32 (granite-moe at both
+                 dispatches), 4 x 36 positions. (a) Four gloo processes
+                 on this machine's CPU (``--sharded-child``), under its
+                 torch: the loss, gradients, params and moments, logits
+                 and token ids against one process within the tests'
+                 tolerances, outputs laid out by ``out_shardings``, no
+                 KV cache gathered in decode; collectives counted. (b)
+                 This process as rank 0 of 4 through torch's fake process
+                 group, on the card: each family's steps on CUDA
+                 DTensors, every op accepted and every param's block of
+                 ``shard_shape``; the fake collectives carry no data, so
+                 no value is checked there.
 
 Then the kernels line, the card line, and the final status line.
 """
@@ -200,7 +216,8 @@ FP32_FLOPS = 67e12            # H100 SXM fp32 outside the tensor cores
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 PHASES = ("kernels", "parity", "write_parity", "durability", "main",
           "tiered", "consolidation", "partitioned", "distributed",
-          "baselines", "calibrate", "serve", "families", "train", "launch")
+          "baselines", "calibrate", "serve", "families", "train", "launch",
+          "sharded")
 
 
 def emit(phase, **kw):
@@ -1807,7 +1824,7 @@ def filtered_requests(eng, vecs, queries, specs, dev, k=10):
 
 def phase_tiered_main(gen, dev, seed, n=1_000_000, d=96, sizes=(1024,) * 8
                       + (10_240,), recall_q=1024, min_recall=0.5,
-                      write_steps=4, write_rows=2048, filtered_q=3,
+                      write_steps=2, write_rows=2048, filtered_q=3,
                       min_graph_filter_recall=0.2, keep=None):
     """The three-tier engine at Deep1B's published width
     (configs/svfusion_deep1b.py: D=96, degree 32, pool 64, k=10, 64 hops
@@ -2005,7 +2022,7 @@ def phase_tiered_main(gen, dev, seed, n=1_000_000, d=96, sizes=(1024,) * 8
     return launched, f_launched
 
 
-def phase_tiered_consolidation(gen, dev, seed, n=131_072, d=96, steps=2,
+def phase_tiered_consolidation(gen, dev, seed, n=65_536, d=96, steps=2,
                                rows=2048):
     """The three-tier consolidation at a size that fits the run: the
     tiered configuration on ``n`` rows of the same synthetic
@@ -3051,15 +3068,12 @@ def train_batch(cfg, rng, dev, B=2, S=24):
 def loss_and_grads(cfg, params, batch, dev):
     """The loss and the gradient leaves (sorted-key order) of ``loss_fn``
     on a copy of ``params`` on ``dev``."""
-    import torch
-    from repro_torch.models import model as M
     from repro_torch.models.layers import tree_leaves, tree_map
-    params = tree_map(lambda a: a.detach().to(dev, copy=True)
-                      .requires_grad_(), params)
-    leaves = tree_leaves(params)
-    loss = M.loss_fn(cfg, params, {k: v.to(dev) for k, v in batch.items()})
-    return loss.detach(), torch.autograd.grad(
-        loss, leaves, allow_unused=True, materialize_grads=True)
+    from repro_torch.train import train_loop
+    loss, grads = train_loop.loss_and_grads(
+        cfg, tree_map(lambda a: a.to(dev, copy=True), params),
+        {k: v.to(dev) for k, v in batch.items()})
+    return loss, tree_leaves(grads)
 
 
 def grad_ratio(got, want):
@@ -3621,8 +3635,10 @@ def phase_launch(dev, seed):
     from repro_torch.launch import steps as Steps
     t0 = time.perf_counter()
     for arch, name, cut, reduced in LAUNCH_CELLS[:4]:
+        # granite's prefill_32k step takes ~8 s: 2 timed steps, not 5
         launch_lm_cell(arch, dataclasses.replace(SHAPES[name], **cut),
-                       reduced, dev, seed)
+                       reduced, dev, seed,
+                       steps=2 if name == "prefill_32k" else 5)
     arch, name, cut, reduced = LAUNCH_CELLS[4]
     dist.init_process_group("nccl", init_method=f"tcp://localhost:"
                             f"{_free_port()}", world_size=1, rank=0)
@@ -3635,6 +3651,322 @@ def phase_launch(dev, seed):
         dist.destroy_process_group()
     emit("launch", seconds=time.perf_counter() - t0)
     return launched, row
+
+
+# the sharded phase's (family, MoE dispatch) cases and cell: the tests'
+# (tests/test_torch_launch_sharded.py); no smoke width is 36, so a gather
+# of a KV cache shows by its length
+SHARDED_CASES = (("smollm_135m", None), ("qwen3_0p6b", None),
+                 ("phi4_mini_3p8b", None), ("deepseek_7b", None),
+                 ("granite_moe_1b", None), ("granite_moe_1b", "dense"),
+                 ("grok1_314b", None), ("falcon_mamba_7b", None),
+                 ("hymba_1p5b", None), ("internvl2_2b", None),
+                 ("whisper_medium", None))
+SHARDED_B, SHARDED_S, SHARDED_PROMPT = 4, 36, 28
+SHARDED_WORLD = 4
+
+
+def sharded_bundles(arch, impl, mesh):
+    """The fp32 smoke config of ``arch`` (remat "full" for training) and
+    its train, prefill and decode bundles at the sharded cell, in one
+    process and resolved on ``mesh``."""
+    from repro_torch.configs.base import ShapeConfig, load_smoke_config
+    from repro_torch.launch import steps as Steps
+    base = load_smoke_config(arch).replace(
+        dtype="float32", remat_policy="full",
+        **({"moe_impl": impl} if impl else {}))
+    out = {}
+    for kind in ("train", "prefill", "decode"):
+        shape = ShapeConfig("smoke_" + kind, SHARDED_S, SHARDED_B, kind)
+        cfg = Steps.tune_config(base, shape)
+        out[kind] = (cfg, Steps.step_bundle(arch, shape, cfg),
+                     Steps.step_bundle(arch, shape, cfg, mesh=mesh))
+    return out
+
+
+def sharded_inputs(cfg, seed):
+    """Params (fp32, from the seed) and the cell's batches: the train
+    batch, the prefill batch, the decode prompt (its first
+    SHARDED_PROMPT positions) and a decode token."""
+    import torch
+    from repro_torch.models import model as M
+    rng = np.random.default_rng(seed)
+    B, S = SHARDED_B, SHARDED_S
+    P = cfg.n_patches if cfg.family == "vlm" else 0
+    tok = rng.integers(0, cfg.vocab, (B, S - P)).astype(np.int32)
+    extra = {}
+    if cfg.family == "vlm":
+        extra["patches"] = rng.normal(size=(B, P, cfg.d_model))
+    if cfg.family == "encdec":
+        extra["frames"] = rng.normal(size=(B, S, cfg.d_model))
+
+    def batch(**kw):
+        return {k: torch.as_tensor(v, dtype=torch.int32 if v.dtype.kind
+                                   == "i" else torch.float32)
+                for k, v in dict(kw, **extra).items()}
+    params = M.init_params(cfg, torch.Generator().manual_seed(seed))
+    return (params, batch(tokens=tok, labels=np.roll(tok, -1, 1)),
+            batch(tokens=tok), batch(tokens=tok[:, :SHARDED_PROMPT - P]),
+            torch.as_tensor(rng.integers(0, cfg.vocab, (B, 1)),
+                            dtype=torch.int32))
+
+
+def _whole(x):
+    from repro_torch.models.sharding import is_dtensor
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def _tree_ratio(got, want):
+    """max over leaves of max|x - x_1| / (1e-4 max|x_1| + 1e-7): at most
+    1 within the gradient tolerance."""
+    from repro_torch.utils import tree_leaves
+    return max(float((_whole(g).float() - w.float()).abs().max()
+                     / (1e-4 * w.float().abs().max() + 1e-7))
+               for g, w in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def _tree_err(got, want):
+    from repro_torch.utils import tree_leaves
+    return max(float((_whole(g).float() - w.float()).abs().max())
+               for g, w in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def _spec_pairs(tree, specs):
+    """(tensor, spec) for every tensor of an output tree."""
+    import torch
+    if torch.is_tensor(tree):
+        return [(tree, specs)]
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _spec_pairs(tree[k], specs[k])]
+    return [x for t, sp in zip(tree, specs) for x in _spec_pairs(t, sp)]
+
+
+def _laid_out(tree, specs, mesh):
+    """Every leaf a DTensor with its spec's placements, its local block of
+    ``shard_shape`` (this rank's; the first ranks' on an uneven split)."""
+    from repro_torch.models import sharding as Sh
+    return all(Sh.is_dtensor(x)
+               and list(x.placements) == Sh.placements(sp, mesh)
+               and tuple(x.to_local().shape)
+               == Sh.shard_shape(x.shape, sp, mesh)
+               for x, sp in _spec_pairs(tree, specs))
+
+
+def _collectives_mode():
+    """A dispatch mode that records the collectives DTensor issues (name,
+    output shape)."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Collectives(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented      # DTensor lowers to collectives
+            out = func(*args, **(kwargs or {}))
+            if func.namespace == "_c10d_functional":
+                self.ops.append([func.__name__.split(".")[0],
+                                 list(out.shape)])
+            return out
+    return Collectives()
+
+
+def sharded_case(arch, impl, mesh, seed):
+    """One case of part (a) on this gloo rank: the train step (and its
+    gradients alone), the prefill and two decode steps run sharded by
+    ``run_sharded`` against the same bundles in one process."""
+    import dataclasses
+    import torch
+    from repro_torch.launch import steps as Steps
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import tree_map
+    from repro_torch.train import optimizer as Opt
+    from repro_torch.train.train_loop import loss_and_grads
+    t0 = time.perf_counter()
+    bundles = sharded_bundles(arch, impl, mesh)
+    cfg, one, sb = bundles["train"]
+    params, batch, pbatch, prompt, tok = sharded_inputs(cfg, seed)
+    rec = _collectives_mode()
+    opt = Opt.init_adam(params, Steps.adam_config(cfg))
+    want = one.fn(params, opt, batch)
+    with rec:
+        got = Steps.run_sharded(sb, (params, opt, batch), mesh)
+        grads_b = dataclasses.replace(
+            sb, fn=lambda p, o, b: loss_and_grads(cfg, p, b),
+            out_shardings=((), sb.in_shardings[0]))
+        _, grads = Steps.run_sharded(grads_b, (params, opt, batch), mesh)
+    _, w_grads = loss_and_grads(cfg, params, batch)
+    loss_one = float(want[2])
+    r = dict(loss_one=loss_one, loss_sharded=float(_whole(got[2])),
+             loss_gap=abs(float(_whole(got[2])) - loss_one) / abs(loss_one),
+             grad_share=_tree_ratio(grads, w_grads),
+             param_share=_tree_ratio(got[0], want[0]),
+             moment_share=max(_tree_ratio(got[1].mu, want[1].mu),
+                              _tree_ratio(got[1].nu, want[1].nu)),
+             train_laid_out=_laid_out(got[:2], sb.out_shardings[:2], mesh))
+    _, one, sb = bundles["prefill"]
+    want = one.fn(params, pbatch)
+    with rec:
+        got = Steps.run_sharded(sb, (params, pbatch), mesh)
+    r.update(prefill_logits_err=_tree_err(got[0], want[0]),
+             prefill_cache_err=_tree_err(got[1], want[1]),
+             prefill_laid_out=_laid_out(got[1], sb.out_shardings[1], mesh))
+    cfg, one, sb = bundles["decode"]
+    _, cache = M.prefill(cfg, params, prompt, SHARDED_S)
+    w_cache, d_cache = tree_map(lambda a: a.clone(), cache), cache
+    errs, same, n_before = [], True, len(rec.ops)
+    for _ in range(2):
+        w_logits, w_cache = one.fn(params, w_cache, tok)
+        with rec:
+            logits, d_cache = Steps.run_sharded(sb, (params, d_cache, tok),
+                                                mesh)
+        errs.append(_tree_err(logits, w_logits))
+        same &= bool(torch.equal(_whole(logits).argmax(-1),
+                                 w_logits.argmax(-1)))
+        tok = w_logits.argmax(-1).to(torch.int32)
+    gathers = [shape for op, shape in rec.ops
+               if op == "all_gather_into_tensor"]
+    r.update(decode_logits_err=max(errs), decode_ids_equal=same,
+             decode_cache_err=_tree_err(d_cache, w_cache),
+             decode_laid_out=_laid_out(d_cache, sb.out_shardings[1], mesh),
+             decode_cache_gathers=sum(SHARDED_S in shape for op, shape
+                                      in rec.ops[n_before:]
+                                      if op == "all_gather_into_tensor"),
+             collectives=len(rec.ops),
+             largest_all_gather_elements=max(
+                 (math.prod(shape) for shape in gathers), default=0),
+             seconds=time.perf_counter() - t0)
+    return r
+
+
+def sharded_child(args):
+    """A gloo rank of the sharded phase's part (a) (``--sharded-child DIR
+    --sharded-rank R``), on the CPU: join the 4-rank group through a file
+    rendezvous in DIR, run every case on a (2, 2) mesh and write its
+    record to DIR."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+    root = Path(args.sharded_child)
+    dist.init_process_group("gloo", init_method=f"file://{root}/rdzv",
+                            world_size=SHARDED_WORLD, rank=args.sharded_rank)
+    try:
+        mesh = make_test_mesh((2, 2), ("data", "model"))
+        res = {}
+        for arch, impl in SHARDED_CASES:
+            name = arch + ("-" + impl if impl else "")
+            res[name] = sharded_case(arch, impl, mesh, args.seed)
+        (root / f"rank{args.sharded_rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+    sys.exit(0)
+
+
+def sharded_cpu(seed, timeout=300):
+    """Part (a): SHARDED_WORLD gloo processes on this machine's CPU, under
+    its torch, every case against one process; one line a case. Fails
+    beyond the tests' tolerances."""
+    import torch
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        env = dict(__import__("os").environ, OMP_NUM_THREADS="2")
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--sharded-child",
+             td, "--sharded-rank", str(r), "--seed", str(seed)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for r in range(SHARDED_WORLD)]
+        try:
+            for p in procs:
+                _, err = p.communicate(timeout=timeout)
+                if p.returncode != 0:
+                    raise AssertionError(f"sharded rank: {err[-3000:]}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks = [json.loads((Path(td) / f"rank{r}.json").read_text())
+                 for r in range(SHARDED_WORLD)]
+    where = (f"{SHARDED_WORLD} gloo processes on the CPU (not the card), "
+             f"torch {torch.__version__}, a (2, 2) (data, model) mesh")
+    for name in ranks[0]:
+        rs = [rank[name] for rank in ranks]
+        worst = {k: max(r[k] for r in rs) for k in rs[0]
+                 if isinstance(rs[0][k], float) and k != "seconds"}
+        ok = (worst["loss_gap"] <= 1e-4 and worst["grad_share"] <= 1
+              and worst["param_share"] <= 1 and worst["moment_share"] <= 1
+              and max(worst[k] for k in worst if k.endswith("_err")) <= 1e-4
+              and all(r["decode_ids_equal"] and r["train_laid_out"]
+                      and r["prefill_laid_out"] and r["decode_laid_out"]
+                      and r["decode_cache_gathers"] == 0 for r in rs))
+        emit("sharded_family", case=name, where=where,
+             cell=f"{SHARDED_B} x {SHARDED_S} (decode from {SHARDED_PROMPT})",
+             **{k: v for k, v in rs[0].items() if k not in worst},
+             **worst, checked=ok)
+        if not ok:
+            raise AssertionError(f"sharded {name}: beyond the tolerances "
+                                 f"or laid out otherwise: {worst}")
+    return time.perf_counter() - t0
+
+
+def sharded_card(dev):
+    """Part (b): this process as rank 0 of 4 through the fake process
+    group, a (2, 2) mesh on ``dev``; each family's train, prefill and
+    decode step run sharded on DTensors there. DTensor accepts every op
+    on the card and each param's block has ``shard_shape``'s shape; the
+    fake collectives carry no data, so no value is checked."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.launch import steps as Steps
+    from repro_torch.utils import tree_leaves
+    t0 = time.perf_counter()
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=SHARDED_WORLD)
+    try:
+        mesh = DeviceMesh(dev.type, torch.arange(SHARDED_WORLD).reshape(2, 2),
+                          mesh_dim_names=("data", "model"))
+        for arch, impl in SHARDED_CASES:
+            t1 = time.perf_counter()
+            bundles = sharded_bundles(arch, impl, mesh)
+            blocks = True
+            for kind, (cfg, _, sb) in bundles.items():
+                args = Steps.materialize(
+                    sb, torch.Generator(device=dev).manual_seed(0), dev)
+                out = Steps.run_sharded(sb, args, mesh)
+                if kind == "train":
+                    blocks = _laid_out(out[0], sb.out_shardings[0], mesh)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            emit("sharded_card", case=arch + ("-" + impl if impl else ""),
+                 device=str(tree_leaves(out)[0].to_local().device),
+                 steps=list(bundles), ops_accepted=True,
+                 param_blocks_match_shard_shape=blocks,
+                 values="not checked: the fake process group's "
+                 "collectives carry no data",
+                 seconds=time.perf_counter() - t1)
+            if not blocks:
+                raise AssertionError(f"{arch}: a param's block differs "
+                                     "from shard_shape")
+    finally:
+        dist.destroy_process_group()
+    return time.perf_counter() - t0
+
+
+def phase_sharded(dev, seed):
+    """Every LM family's train, prefill and decode step through
+    ``run_sharded`` on a (2, 2) mesh: (a) on CPU gloo ranks under this
+    machine's torch, values against one process; (b) on the card as rank
+    0 of a fake process group, ops and blocks only."""
+    cpu_s = sharded_cpu(seed)
+    card_s = sharded_card(dev)
+    emit("sharded", part_a_seconds=cpu_s, part_b_seconds=card_s,
+         part_a="CPU gloo ranks: values against one process",
+         part_b=f"{dev} through the fake process group: ops and blocks, "
+         "no values")
 
 
 def main():
@@ -3652,6 +3984,9 @@ def main():
     # the distributed phase's gloo ranks (see dist_child)
     ap.add_argument("--dist-child", help=argparse.SUPPRESS)
     ap.add_argument("--dist-rank", type=int, help=argparse.SUPPRESS)
+    # the sharded phase's gloo ranks (see sharded_child)
+    ap.add_argument("--sharded-child", help=argparse.SUPPRESS)
+    ap.add_argument("--sharded-rank", type=int, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs only on the "
@@ -3660,6 +3995,8 @@ def main():
         crash_child(args)
     if args.dist_child:
         dist_child(args)
+    if args.sharded_child:
+        sharded_child(args)
     only = args.only.split(",")
     if set(only) - set(PHASES):
         sys.exit(f"chip_smoke: unknown phases {set(only) - set(PHASES)}")
@@ -3733,6 +4070,8 @@ def main():
         phase_train(dev, args.seed)
     if "launch" in only:
         l2_launch_launches, l2_msturing = phase_launch(dev, args.seed)
+    if "sharded" in only:
+        phase_sharded(dev, args.seed)
     emit("phases", ran=only, seconds=time.perf_counter() - t_run)
 
     if only == list(PHASES):

@@ -5,7 +5,9 @@ and cost units (twin of ``repro.launch.steps``).
 A bundle's ``fn`` takes real tensors; its ``abstract_args`` are the same
 inputs as ``meta`` tensors (shapes and dtypes, no storage), its
 ``in_shardings`` their specs under the current mesh and rules.
-``materialize`` makes real inputs for a bundle on a device.
+``materialize`` makes real inputs for a bundle on a device;
+``run_sharded`` runs a bundle resolved on a ``DeviceMesh`` there, as
+the reference's ``jit(fn, in_shardings=, out_shardings=)`` does.
 
 Cost units: each is one layer body of a kind (a train unit is one
 layer's forward, recompute and backward through autograd) with the
@@ -17,6 +19,7 @@ steps.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
@@ -30,7 +33,10 @@ from repro_torch.models import layers as Lyr
 from repro_torch.models import mamba as M
 from repro_torch.models import model as Mdl
 from repro_torch.models import moe as Moe
-from repro_torch.models.sharding import ax, axis_size, current_mesh
+from repro_torch.models.sharding import (NamedSharding, ax, axis_size,
+                                         current_mesh, is_dtensor,
+                                         placements, rules_override,
+                                         use_mesh)
 from repro_torch.train import optimizer as Opt
 from repro_torch.train.train_loop import make_step
 
@@ -66,6 +72,7 @@ class StepBundle:
     cfg: Optional[ModelConfig] = None     # the tuned config (LM cells)
     reads: Any = None                     # the index fields a search reads
     n_shards: int = 1                     # a search's index shards
+    rules: Optional[dict] = None          # plan_rules its specs took on a mesh
 
 
 @dataclass(frozen=True)
@@ -103,13 +110,15 @@ def shape_config(shape):
 # Per-cell policy
 # ---------------------------------------------------------------------------
 
-def plan_rules(arch: str, shape) -> dict:
+def plan_rules(arch: str, shape, cfg: Optional[ModelConfig] = None) -> dict:
     """Pick the parallelism scheme per cell (call under ``use_mesh``).
 
     Pure DP+FSDP (batch over data x model, no tensor axis) for a training
     step whose batch divides the mesh and whose per-layer gathered weight
     slab stays small; the SP/TP scheme (DEFAULT_RULES) otherwise; batch
-    replicated where it does not divide the batch axes."""
+    replicated where it does not divide the batch axes. ``cfg`` (default
+    the published config) is the model the cell runs: a smoke config for
+    the tests' small cells."""
     shape = shape_config(shape)
     if not isinstance(shape, ShapeConfig) or arch.startswith("svfusion"):
         return {}
@@ -117,7 +126,7 @@ def plan_rules(arch: str, shape) -> dict:
     if shape.global_batch % max(axis_size("batch"), 1) != 0:
         rules["batch"] = ()          # e.g. long_500k batch=1
         return rules
-    cfg = load_config(arch)
+    cfg = cfg or load_config(arch)
     sizes = current_mesh().sizes
     data_model = sizes.get("data", 1) * sizes.get("model", 1)
     layer_slab_gb = count_params(cfg) / max(cfg.n_layers, 1) * 2 / 1e9
@@ -488,8 +497,20 @@ def build_bundle(arch: str, shape) -> StepBundle:
     return step_bundle(arch, shape, tune_config(load_config(arch), shape))
 
 
-def step_bundle(arch: str, shape: ShapeConfig, cfg: ModelConfig):
-    """``build_bundle``'s step for the config ``cfg``."""
+def step_bundle(arch: str, shape: ShapeConfig, cfg: ModelConfig,
+                mesh=None):
+    """``build_bundle``'s step for the config ``cfg`` (a published or a
+    smoke config, tuned or not) at ``shape`` (any ``ShapeConfig``). Its
+    specs resolve under the current mesh and rules; with ``mesh`` (a
+    named ``DeviceMesh`` or a ``MeshDesc``), under ``use_mesh(mesh)`` and
+    the cell's ``plan_rules``, which the bundle keeps for
+    ``run_sharded``."""
+    if mesh is not None:
+        with use_mesh(mesh):
+            rules = plan_rules(arch, shape, cfg)
+            with rules_override(**rules):
+                return dataclasses.replace(step_bundle(arch, shape, cfg),
+                                           rules=rules)
     notes = (f"residual_shard={cfg.residual_shard} attn_chunk={cfg.attn_chunk}"
              f" remat={cfg.remat_policy}")
 
@@ -532,6 +553,51 @@ def step_bundle(arch: str, shape: ShapeConfig, cfg: ModelConfig):
                   (p_abs, cache_abs, meta((shape.global_batch, 1), I32)),
                   (p_spec, cache_spec, ax("batch", None)),
                   ((), cache_spec), (1,), units)
+
+
+# ---------------------------------------------------------------------------
+# Sharded execution
+# ---------------------------------------------------------------------------
+
+def _spec_map(fn, tree, specs):
+    """``fn(tensor, spec)`` on every tensor of ``tree`` (dicts, tuples,
+    NamedTuples, lists), its spec the leaf at the same place of
+    ``specs``; any other leaf is kept."""
+    if torch.is_tensor(tree):
+        return fn(tree, specs)
+    if isinstance(tree, dict):
+        return {k: _spec_map(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        out = [_spec_map(fn, t, s) for t, s in zip(tree, specs, strict=True)]
+        return type(tree)(*out) if hasattr(tree, "_fields") \
+            else type(tree)(out)
+    return tree
+
+
+def run_sharded(bundle: StepBundle, args, mesh):
+    """``bundle.fn(*args)`` run sharded on ``mesh`` (a named
+    ``DeviceMesh``: gloo ranks on CPUs, NCCL ranks on cards), the port's
+    ``jit(fn, in_shardings=, out_shardings=)``. Each argument, the same
+    whole tensor on every rank (or a DTensor on ``mesh``), is laid out by
+    ``in_shardings``; ``fn`` runs under ``use_mesh(mesh)`` and the rules
+    the bundle's specs were resolved under; every output is laid out by
+    ``out_shardings`` (a spec of ``()``: replicated). A decode bundle
+    writes the placed cache in place and returns it. The bundle comes
+    from ``step_bundle(..., mesh=mesh)``."""
+    if bundle.rules is None:
+        raise ValueError(f"{bundle.arch} {bundle.shape}: the bundle's specs "
+                         "were not resolved on a mesh; build it with "
+                         "step_bundle(..., mesh=mesh)")
+
+    def lay_out(x, spec):
+        if is_dtensor(x):
+            return x.redistribute(mesh, placements(spec, mesh))
+        return NamedSharding(mesh, spec).place(x)
+
+    with use_mesh(mesh), rules_override(**bundle.rules):
+        placed = _spec_map(lay_out, tuple(args), bundle.in_shardings)
+        out = bundle.fn(*placed)
+        return _spec_map(lay_out, out, bundle.out_shardings)
 
 
 # ---------------------------------------------------------------------------

@@ -32,7 +32,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.models.sharding import (ax, constrain, replicated_like,
+from repro_torch.models.sharding import (ax, blocks, constrain, context,
+                                         from_blocks, is_dtensor,
+                                         replicated_like, use_context,
                                          weight_gather, whole_dim)
 
 NEG = -1e30          # the reference's additive mask value
@@ -129,7 +131,7 @@ def rope_freqs(positions, head_dim, theta):
     half = head_dim // 2
     inv = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
                                         device=positions.device) / half))
-    ang = positions.float()[..., None] * inv
+    ang = positions.float()[..., None] * replicated_like(inv, positions)
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -154,8 +156,9 @@ def _mask_bias(qpos, kpos, *, causal, window, kv_len=None):
     """Additive mask bias [*, S, T] (fp32) from absolute positions."""
     q = qpos[..., :, None]
     k = kpos[..., None, :]
-    cond = torch.ones(torch.broadcast_shapes(q.shape, k.shape),
-                      dtype=torch.bool, device=kpos.device)
+    cond = replicated_like(torch.ones(torch.broadcast_shapes(q.shape, k.shape),
+                                      dtype=torch.bool, device=kpos.device),
+                           k)
     if causal:
         cond = cond & (k <= q)
     if window:
@@ -167,11 +170,62 @@ def _mask_bias(qpos, kpos, *, causal, window, kv_len=None):
 
 def _attn_core(q, k, v, bias):
     """q [B,S,H,D]; k,v [B,T,H,D]; bias broadcastable to [B,1,S,T] (fp32)."""
+    if is_dtensor(q) or is_dtensor(k):
+        return _attn_blocks(q, k, v, bias)
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
-    scores = scores + replicated_like(bias, scores)
+    scores = scores + bias
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhst,bthd->bshd", probs, v)
+
+
+def _attn_blocks(q, k, v, bias):
+    """``_attn_core`` of DTensors, each rank on its own block. Attention is
+    independent per batch row, query and head, so q keeps its split of
+    those dims and k, v and the bias follow it (DTensor's einsum would
+    flatten a sharded head dim into the batched product's batch, which
+    torch 2.11 refuses). A key dim split over mesh dims (a seq-sharded
+    decode cache) stays split: the softmax's max and sum and the partial
+    PV products are all-reduced over those mesh dims (flash-decoding's
+    combine; no backward) instead of gathering the cache."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Replicate, Shard
+    ref = q if is_dtensor(q) else k
+    mesh = ref.device_mesh
+    t_dims = [i for i, p in enumerate(k.placements) if p.is_shard(1)]
+    # per mesh dim: the q dim it splits (0 batch, 1 query, 2 head), or 3
+    # where it splits the keys
+    split = [3 if i in t_dims else p.dim if p.is_shard() and p.dim < 3
+             else None for i, p in enumerate(q.placements)]
+
+    def pl(t, dims):    # dims: t's dim for (batch, query, head, key)
+        out = []
+        for axis in split:
+            dim = None if axis is None else dims[axis]
+            out.append(Shard(dim) if dim is not None and t.shape[dim] > 1
+                       else Replicate())
+        return out
+    q, k, v, bias = (replicated_like(t, ref) for t in (q, k, v, bias))
+    q_pl = pl(q, (0, 1, 2, None))
+    ql, kl, vl, bl = blocks([q, k, v, bias], [
+        q_pl, pl(k, (0, None, 2, 1)), pl(v, (0, None, 2, 1)),
+        pl(bias, (0, 2, 1, 3))])
+    scale = 1.0 / math.sqrt(ql.shape[-1])
+    scores = torch.einsum("bshd,bthd->bhst", ql.float(), kl.float()) * scale
+    scores = scores + bl
+    if not t_dims:
+        probs = torch.softmax(scores, dim=-1).to(ql.dtype)
+        out = torch.einsum("bhst,bthd->bshd", probs, vl)
+    else:
+        def reduce(t, op):
+            for i in t_dims:
+                t = funcol.all_reduce(t, op, (mesh, i))
+            return t
+        m = reduce(scores.amax(-1, keepdim=True), "max")
+        e = torch.exp(scores - m)
+        probs = (e / reduce(e.sum(-1, keepdim=True), "sum")).to(ql.dtype)
+        out = reduce(torch.einsum("bhst,bthd->bshd", probs, vl), "sum")
+    return from_blocks(out, mesh, q_pl, q.shape)
 
 
 def repeat_kv(k, n_rep):
@@ -193,14 +247,19 @@ def attention(q, k, v, *, causal=True, q_offset=0, window=0, kv_len=None,
     dev = q.device
     k = repeat_kv(k, Hq // Hkv)
     v = repeat_kv(v, Hq // Hkv)
-    q_offset = torch.as_tensor(q_offset, device=dev)
-    kv_len_arr = None if kv_len is None else torch.as_tensor(kv_len,
-                                                             device=dev)
-    kpos = torch.arange(T, device=dev)
+    # positions given as DTensors (a sharded decode's cache length) put
+    # the mask's other positions on their mesh, replicated
+    on_mesh = next((t for t in (q_offset, kv_len) if is_dtensor(t)), None)
+
+    def positions(t):
+        return replicated_like(torch.as_tensor(t, device=dev), on_mesh)
+    q_offset = positions(q_offset)
+    kv_len_arr = None if kv_len is None else positions(kv_len)
+    kpos = positions(torch.arange(T, device=dev))
 
     def block(qc, off):
         Sc = qc.shape[1]
-        ar = torch.arange(Sc, device=dev)
+        ar = positions(torch.arange(Sc, device=dev))
         if off.ndim == 0:
             bias = _mask_bias(off + ar, kpos, causal=causal, window=window,
                               kv_len=kv_len_arr
@@ -388,10 +447,12 @@ def maybe_remat(fn, policy: str):
     """``fn`` under the remat ``policy``: "none" saves every activation,
     "dots" saves ``fn``'s inputs and its batch-free matmul outputs and
     recomputes the rest in the backward, anything else ("full") saves
-    only the inputs. A call that no gradient will pass through (grad mode
-    off, or no argument requiring grad: serving, prefill) runs ``fn``
-    as it is, as ``jax.checkpoint`` does outside differentiation. The
-    values computed do not depend on the policy."""
+    only the inputs. A call that no gradient will pass through (grad
+    mode off, or no argument requiring grad: serving, prefill) runs
+    ``fn`` as it is, as ``jax.checkpoint`` does outside
+    differentiation. The values computed do not depend on the policy.
+    The recompute runs under the forward's mesh and rules, on whatever
+    thread the backward takes."""
     if policy == "none":
         return fn
     kw = {"context_fn": _dots_context} if policy == "dots" else {}
@@ -399,5 +460,10 @@ def maybe_remat(fn, policy: str):
     def remat(*args):
         if not _differentiated(args):
             return fn(*args)
-        return checkpoint(fn, *args, use_reentrant=False, **kw)
+        ctx = context()
+
+        def in_context(*a):      # the recompute keeps the forward's rules
+            with use_context(ctx):
+                return fn(*a)
+        return checkpoint(in_context, *args, use_reentrant=False, **kw)
     return remat

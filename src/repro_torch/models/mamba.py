@@ -20,7 +20,9 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from repro_torch.models.layers import TSpec, res_constrain
-from repro_torch.models.sharding import constrain, weight_gather
+from repro_torch.models.sharding import (blocks, constrain, from_blocks,
+                                         is_dtensor, replicated_like,
+                                         weight_gather)
 
 
 def ssm_template(cfg, stacked=None, d_model=None):
@@ -62,7 +64,9 @@ def _ssm_coeffs(p, xc, cfg):
     bx [B,S,Din,N] input, Cc [B,S,N], all fp32."""
     R = p["dt_proj"].shape[0]
     N = cfg.d_state
-    proj = xc @ p["x_proj"].to(xc.dtype)              # [B,S,R+2N]
+    # whole on Din's split (an all-reduce of the sharded contraction): the
+    # dt projection and the input and output maps read every column
+    proj = constrain(xc @ p["x_proj"].to(xc.dtype), "batch", None, None)
     dt, Bc, Cc = torch.split(proj, [R, N, N], dim=-1)
     dt = F.softplus(dt.float() @ p["dt_proj"].float()
                     + p["dt_bias"].float())           # [B,S,Din]
@@ -106,8 +110,24 @@ def _chunk_scan(a, bx, h0):
     """Within-chunk scan. a, bx [B,C,Din,N]; h0 [B,Din,N] -> (states
     [B,C,Din,N], a copy of the last state), one step at a time
     (differentiable through ``_Scan``)."""
-    hs = _Scan.apply(a, bx, h0)
+    hs = _scan_blocks(a, bx, h0) if is_dtensor(a) else _Scan.apply(a, bx,
+                                                                   h0)
     return hs, hs[:, -1].clone()
+
+
+def _scan_blocks(a, bx, h0):
+    """``_Scan`` of DTensors on each rank's own block. The recurrence is
+    elementwise over (B, Din, N), so with the time dim whole (gathered
+    where it is split) every rank scans its lanes exactly as one process
+    does, and the states keep ``a``'s placements."""
+    from torch.distributed.tensor import Replicate, Shard
+    pl = [p if p.is_shard() and p.dim != 1 else Replicate()
+          for p in a.placements]
+    # h0 has no time dim: a's dim d > 1 is its dim d - 1
+    h_pl = [Shard(p.dim - (p.dim > 1)) if p.is_shard() else p for p in pl]
+    hs = _Scan.apply(*blocks([a, bx, replicated_like(h0, a)],
+                             [pl, pl, h_pl]))
+    return from_blocks(hs, a.device_mesh, pl, a.shape)
 
 
 def mamba_mixer(p, x, cfg, state=None):

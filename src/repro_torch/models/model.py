@@ -30,7 +30,9 @@ from repro_torch.models.layers import (NEG, TSpec, attention, attn_out,
                                        embed_tokens, lm_logits, maybe_remat,
                                        mlp_apply, mlp_template, res_constrain,
                                        rms_norm, softmax_xent, sp_gather)
-from repro_torch.models.sharding import ax, constrain
+from repro_torch.models.sharding import (ax, constrain, index_copy_,
+                                         is_dtensor, placements,
+                                         replicated_like)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -378,50 +380,57 @@ def loss_fn(cfg, params, batch):
 # KV / state caches
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg, batch, max_len, dtype=None, device="cuda"):
+def init_cache(cfg, batch, max_len, dtype=None, device="cuda", mesh=None):
     """Zero decode cache (the reference's fields and shapes); ``len`` is
-    an int32 scalar, or [B] per lane."""
+    an int32 scalar, or [B] per lane. With ``mesh`` (a named
+    ``DeviceMesh``) every field is a DTensor laid out by ``cache_specs``
+    under the current rules, each rank allocating its own block."""
     dt = dtype_of(dtype or cfg.dtype)
     Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
+    f32, i32 = torch.float32, torch.int32
     fam = cfg.family
 
-    def zeros(*shape, dtype=dt):
-        return torch.zeros(shape, dtype=dtype, device=device)
-
     def kv(n, T):
-        return zeros(n, batch, T, Hkv, Dh), zeros(n, batch, T, Hkv, Dh)
+        return ((n, batch, T, Hkv, Dh), dt), ((n, batch, T, Hkv, Dh), dt)
 
     def ssm(n):
-        return (zeros(n, batch, cfg.d_inner, cfg.d_state,
-                      dtype=torch.float32),
-                zeros(n, batch, cfg.d_conv - 1, cfg.d_inner))
+        return (((n, batch, cfg.d_inner, cfg.d_state), f32),
+                ((n, batch, cfg.d_conv - 1, cfg.d_inner), dt))
 
-    length = zeros(dtype=torch.int32)
+    length = ((), i32)
     if fam in ("dense", "moe", "vlm"):
         k, v = kv(cfg.n_layers, max_len)
-        return {"k": k, "v": v, "len": length}
-    if fam == "ssm":
+        fields = {"k": k, "v": v, "len": length}
+    elif fam == "ssm":
         h, conv = ssm(cfg.n_layers)
-        return {"h": h, "conv": conv, "len": length}
-    if fam == "hybrid":
+        fields = {"h": h, "conv": conv, "len": length}
+    elif fam == "hybrid":
         g_ids, _ = hybrid_split(cfg)
         nG, nW = len(g_ids), cfg.n_layers - len(g_ids)
         W = min(cfg.swa_window, max_len)
-        kg, vg = kv(nG, max_len)
-        kw, vw = kv(nW, W)
-        hg, convg = ssm(nG)
-        hw, convw = ssm(nW)
-        return {"kg": kg, "vg": vg, "kw": kw, "vw": vw,
-                "wpos": torch.full((nW, batch, W), -1, dtype=torch.int32,
-                                   device=device),
-                "hg": hg, "convg": convg, "hw": hw, "convw": convw,
-                "len": length}
-    if fam == "encdec":
+        (kg, vg), (kw, vw) = kv(nG, max_len), kv(nW, W)
+        (hg, convg), (hw, convw) = ssm(nG), ssm(nW)
+        fields = {"kg": kg, "vg": vg, "kw": kw, "vw": vw,
+                  "wpos": ((nW, batch, W), i32),
+                  "hg": hg, "convg": convg, "hw": hw, "convw": convw,
+                  "len": length}
+    elif fam == "encdec":
         k, v = kv(cfg.n_dec_layers, min(max_len, 4096))
         ck, cv = kv(cfg.n_dec_layers, max_len)
-        return {"k": k, "v": v, "ck": ck, "cv": cv,
-                "enc_len": zeros(dtype=torch.int32), "len": length}
-    raise ValueError(fam)
+        fields = {"k": k, "v": v, "ck": ck, "cv": cv, "enc_len": length,
+                  "len": length}
+    else:
+        raise ValueError(fam)
+    specs = cache_specs(cfg) if mesh is not None else {}
+
+    def new(name, shape, dtype):
+        fill = -1 if name == "wpos" else 0    # the ring's empty slots
+        if mesh is None:
+            return torch.full(shape, fill, dtype=dtype, device=device)
+        from torch.distributed.tensor import full
+        return full(shape, fill, dtype=dtype, device_mesh=mesh,
+                    placements=placements(specs[name], mesh))
+    return {name: new(name, *f) for name, f in fields.items()}
 
 
 def cache_specs(cfg, long_context=False):
@@ -458,21 +467,30 @@ def prefill(cfg, params, batch_inputs, max_len):
     holds ``tokens`` (and ``patches`` for vlm, ``frames`` for encdec).
     Returns (logits of the last position [B,1,V], cache)."""
     fam = cfg.family
-    dev = params["tok"]["embed"].device
+    embed = params["tok"]["embed"]
+    dev = embed.device
     tokens = torch.as_tensor(batch_inputs["tokens"], device=dev)
-    cache = init_cache(cfg, tokens.shape[0], max_len, device=dev)
+    cache = init_cache(cfg, tokens.shape[0], max_len, device=dev,
+                       mesh=embed.device_mesh if is_dtensor(embed) else None)
+
+    def upto(n):
+        return torch.arange(n, device=dev)
+
+    def scalar(n, like):
+        return replicated_like(torch.tensor(n, dtype=torch.int32, device=dev),
+                               like)
 
     if fam == "encdec":
         mem, mem_pos = _encode(cfg, params, batch_inputs["frames"])
         x, (k, v, ck, cv) = _decode_trunk(cfg, params, mem, mem_pos, tokens,
                                           collect=True)
         S, T = tokens.shape[1], ck.shape[2]
-        cache["k"][:, :, :S] = k
-        cache["v"][:, :, :S] = v
-        cache["ck"][:, :, :T] = ck
-        cache["cv"][:, :, :T] = cv
-        cache["enc_len"] = torch.tensor(T, dtype=torch.int32, device=dev)
-        cache["len"] = torch.tensor(S, dtype=torch.int32, device=dev)
+        index_copy_(cache["k"], 2, upto(S), k)
+        index_copy_(cache["v"], 2, upto(S), v)
+        index_copy_(cache["ck"], 2, upto(T), ck)
+        index_copy_(cache["cv"], 2, upto(T), cv)
+        cache["enc_len"] = scalar(T, x)
+        cache["len"] = scalar(S, x)
         x = rms_norm(x, params["tok"]["final_norm"], cfg.norm_eps)
         return lm_logits(params["tok"], x[:, -1:], cfg), cache
 
@@ -482,20 +500,19 @@ def prefill(cfg, params, batch_inputs, max_len):
         emb = torch.cat([torch.as_tensor(batch_inputs["patches"],
                                          device=dev).to(dt), emb], dim=1)
     S = emb.shape[1]
-    x, collected = _lm_trunk(cfg, params, emb, torch.arange(S, device=dev),
-                             collect=True)
+    x, collected = _lm_trunk(cfg, params, emb, upto(S), collect=True)
 
     if fam in ("dense", "moe", "vlm"):
         k, v = collected
-        cache["k"][:, :, :S] = k
-        cache["v"][:, :, :S] = v
+        index_copy_(cache["k"], 2, upto(S), k)
+        index_copy_(cache["v"], 2, upto(S), v)
     elif fam == "ssm":
         cache["h"], cache["conv"] = collected
     elif fam == "hybrid":
         caches_g, caches_w = collected
         for i, ((k, v), (h, conv)) in enumerate(caches_g):
-            cache["kg"][i, :, :S] = k
-            cache["vg"][i, :, :S] = v
+            index_copy_(cache["kg"][i], 1, upto(S), k)
+            index_copy_(cache["vg"][i], 1, upto(S), v)
             cache["hg"][i] = h
             cache["convg"][i] = conv
         # the ring keeps the last W positions, each at slot pos % W
@@ -503,12 +520,15 @@ def prefill(cfg, params, batch_inputs, max_len):
         pos = torch.arange(max(0, S - W), S, device=dev)
         slots = pos % W
         for j, ((k, v), (h, conv)) in enumerate(caches_w):
-            cache["kw"][j][:, slots] = k[:, pos]
-            cache["vw"][j][:, slots] = v[:, pos]
-            cache["wpos"][j][:, slots] = pos.to(torch.int32)
+            index_copy_(cache["kw"][j], 1, slots,
+                        k.index_select(1, replicated_like(pos, k)))
+            index_copy_(cache["vw"][j], 1, slots,
+                        v.index_select(1, replicated_like(pos, v)))
+            index_copy_(cache["wpos"][j], 1, slots,
+                        pos.to(torch.int32).expand(tokens.shape[0], -1))
             cache["hw"][j] = h
             cache["convw"][j] = conv
-    cache["len"] = torch.tensor(S, dtype=torch.int32, device=dev)
+    cache["len"] = scalar(S, x)
     x = rms_norm(x, params["tok"]["final_norm"], cfg.norm_eps)
     return lm_logits(params["tok"], x[:, -1:], cfg), cache
 
@@ -524,7 +544,7 @@ def _cache_write(cache, val, pos):
     no index repeats."""
     pos = pos.long().clamp(0, cache.shape[1] - 1)
     if pos.ndim == 0:
-        cache.index_copy_(1, pos.view(1), val[:, None])
+        index_copy_(cache, 1, pos.view(1), val[:, None])
     else:
         cache[torch.arange(cache.shape[0], device=cache.device), pos] = val
     return cache

@@ -25,7 +25,10 @@ import torch.nn.functional as F
 
 from repro_torch.core.topk import largest_k_by_sort
 from repro_torch.models.layers import TSpec
-from repro_torch.models.sharding import constrain, weight_gather
+from repro_torch.models.sharding import (blocks, constrain, from_blocks,
+                                         is_dtensor, local_rows,
+                                         replicated_like, weight_gather,
+                                         whole_dim)
 
 
 def moe_template(cfg, stacked=None):
@@ -61,13 +64,50 @@ def moe_apply_dense(p, x, cfg):
     """Exact dense-compute MoE (oracle)."""
     dt = x.dtype
     probs = _router_probs(p, x)                       # [B,S,E]
-    topv, topi = largest_k_by_sort(probs, cfg.top_k)
+    gates = local_rows(lambda pr: _dense_gates(pr, cfg.top_k), probs)
+    w = [p[k].to(dt) for k in ("w_gate", "w_up", "w_down")]
+    experts = _dense_blocks if is_dtensor(x) else _dense_experts
+    return experts(x, gates.to(dt), *w)
+
+
+def _dense_gates(probs, K):
+    """The top-K router probabilities of each token, renormalised, as
+    [..., E] gates (zero off the top K)."""
+    topv, topi = largest_k_by_sort(probs, K)
     gates = torch.zeros_like(probs).scatter(-1, topi, topv)
-    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
-    h = torch.einsum("bsd,edf->bsef", x, p["w_gate"].to(dt))
-    u = torch.einsum("bsd,edf->bsef", x, p["w_up"].to(dt))
-    y = torch.einsum("bsef,efd->bsed", F.silu(h) * u, p["w_down"].to(dt))
-    return torch.einsum("bsed,bse->bsd", y, gates.to(dt))
+    return gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+
+
+def _dense_experts(x, gates, wg, wu, wd):
+    """Every expert on every token x [B,S,D], combined by gates [B,S,E]."""
+    h = torch.einsum("bsd,edf->bsef", x, wg)
+    u = torch.einsum("bsd,edf->bsef", x, wu)
+    y = torch.einsum("bsef,efd->bsed", F.silu(h) * u, wd)
+    return torch.einsum("bsed,bse->bsd", y, gates)
+
+
+def _dense_blocks(x, gates, wg, wu, wd):
+    """``_dense_experts`` of DTensors, tensor-parallel. Each rank takes its
+    tokens (x's batch split) and its block of the experts' hidden dim F
+    (the weights' tensor split), D whole (the weights gathered over their
+    fsdp split, as ``weight_gather`` does); its part of the down-
+    projection is summed across the F split (a Partial placement). The
+    einsums over DTensors would flatten a sharded F into a product's
+    dim, which torch 2.11 refuses."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    rows = [p.is_shard(0) for p in x.placements]
+    f_split = [p.is_shard(2) and not r for p, r in zip(wg.placements, rows)]
+
+    def pl(split, dim):
+        return [Shard(dim) if s else Replicate() for s in split]
+    y = _dense_experts(*blocks(
+        [x, replicated_like(gates, x), wg, wu, wd],
+        [pl(rows, 0), pl(rows, 0), pl(f_split, 2), pl(f_split, 2),
+         pl(f_split, 1)]))
+    return from_blocks(y, mesh, [Shard(0) if r else Partial() if f
+                                 else Replicate()
+                                 for r, f in zip(rows, f_split)], x.shape)
 
 
 def capacity_slots(topi, E, C):
@@ -101,31 +141,56 @@ def moe_apply_capacity(p, x, cfg):
     G = T // g
     C = min(int(math.ceil(g * K / E * cfg.capacity_factor)), g)
 
-    xt = x.reshape(G, g, D)
+    # each rank's groups whole on it (a redistribution of the tokens where
+    # the groups do not split evenly over the batch's shards)
+    xt = whole_dim(x, 0, G).reshape(G, g, D)
     probs = _router_probs(p, xt)                      # [G,g,E] fp32
+    xe, topv, topi, place, keep = local_rows(
+        lambda xt, probs: _dispatch(xt, probs, K, C), xt, probs)
+    xe = constrain(xe, "batch", None, None, None)
+    ye = _expert_ffn(p, xe, dt, cfg)                  # [G,E,C,D]
+    y = local_rows(lambda *a: _combine(*a, dt), topv, topi, place, keep, ye)
+    return constrain(y.reshape(B, S, D), "batch", None, None)
+
+
+def _rows(topi, place, E, C):
+    """Each claim's row in the groups' [G, E, C+1] places."""
+    grp = torch.arange(topi.shape[0], device=topi.device)[:, None, None]
+    return ((grp * E + topi) * (C + 1) + place).reshape(-1)
+
+
+def _dispatch(xt, probs, K, C):
+    """Routing and dispatch of token groups xt [G, g, D] by their router
+    probabilities [G, g, E]: (xe [G, E, C, D], the normalised top-k
+    weights, the experts, each claim's place and whether it is kept,
+    each [G, g, K]). Every group is its own."""
+    G, g, D = xt.shape
+    E = probs.shape[-1]
     topv, topi = largest_k_by_sort(probs, K)          # [G,g,K]
     topv = topv / topv.sum(-1, keepdim=True).clamp_min(1e-9)
     pos, keep = capacity_slots(topi, E, C)
-
     # each claim's row in the [G, E, C+1] places: a token routes to each
     # expert at most once, so every kept place is written once; dropped
     # claims all land in their expert's spare place C
     place = torch.where(keep, pos, C)
-    grp = torch.arange(G, device=x.device)[:, None, None]
-    row = ((grp * E + topi) * (C + 1) + place).reshape(-1)
+    row = _rows(topi, place, E, C)
     src = xt[:, :, None, :].expand(G, g, K, D).reshape(-1, D)
-    xe = x.new_zeros(G * E * (C + 1), D).index_put((row,), src)
-    xe = xe.view(G, E, C + 1, D)[:, :, :C]
-    xe = constrain(xe, "batch", None, None, None)
-    ye = _expert_ffn(p, xe, dt, cfg)                  # [G,E,C,D]
+    xe = xt.new_zeros(G * E * (C + 1), D).index_put((row,), src)
+    return xe.view(G, E, C + 1, D)[:, :, :C], topv, topi, place, keep
+
+
+def _combine(topv, topi, place, keep, ye, dt):
+    """The experts' outputs ye [G, E, C, D] back at their tokens, weighted
+    and summed over the top-k claims: [G, g, D] in ``dt``."""
+    G, g, K = topi.shape
+    E, C, D = ye.shape[1:]
     # combine in fp32 (a product of two dt values is exact there), one
     # rounding to dt at the end; the spare places read zeros
     w = topv.to(dt).float() * keep
     ye = torch.cat([ye.float(), ye.new_zeros(G, E, 1, D, dtype=torch.float32)],
                    dim=2)
-    yk = ye.reshape(-1, D)[row].view(G, g, K, D)
-    y = (w[..., None] * yk).sum(2).to(dt).reshape(B, S, D)
-    return constrain(y, "batch", None, None)
+    yk = ye.reshape(-1, D)[_rows(topi, place, E, C)].view(G, g, K, D)
+    return (w[..., None] * yk).sum(2).to(dt)
 
 
 def moe_apply(p, x, cfg):

@@ -23,6 +23,12 @@ tuple of mesh axes that dimension is split over (``()``: replicated).
 redistribute a DTensor on its own mesh, as ``with_sharding_constraint``
 does under a mesh; ``replicated_like`` lifts a plain tensor built beside
 a DTensor (a RoPE table, a mask) onto that DTensor's mesh, replicated.
+
+Where DTensor refuses an op, the model code keeps the split instead of
+gathering: ``blocks`` / ``from_blocks`` and ``local_rows`` run a
+computation on each rank's block (a local map), ``index_copy_`` writes a
+cache in place on each rank's block, and a dim is split only while it
+splits evenly (XLA pads an uneven split; DTensor views refuse one).
 """
 from __future__ import annotations
 
@@ -104,6 +110,24 @@ def rules_override(**kw):
         _local.rules = old
 
 
+def context():
+    """This thread's mesh and rules, for model code that runs on another
+    thread: a checkpoint's recompute runs on the autograd engine's
+    device thread in a CUDA backward."""
+    return current_mesh(), _rules()
+
+
+@contextlib.contextmanager
+def use_context(ctx):
+    """Make ``ctx`` (from ``context()``) this thread's mesh and rules."""
+    old = context()
+    _local.mesh, _local.rules = ctx
+    try:
+        yield
+    finally:
+        _local.mesh, _local.rules = old
+
+
 def mesh_axis_names() -> tuple[str, ...]:
     mesh = current_mesh()
     return () if mesh is None else tuple(mesh.axis_names)
@@ -172,29 +196,51 @@ class NamedSharding:
 
     def place(self, x):
         """``x`` (the same whole tensor on every rank) as a DTensor laid
-        out by the spec; a rank outside the mesh holds an empty block."""
+        out by the spec, each rank cutting its block from its own copy
+        (no collective); a rank outside the mesh holds an empty block."""
         from torch.distributed.tensor import distribute_tensor
         return distribute_tensor(x.to(self.mesh.device_type), self.mesh,
-                                 placements(self.spec, self.mesh))
+                                 placements(self.spec, self.mesh),
+                                 src_data_rank=None)
 
 
-def _is_dtensor(x) -> bool:
+def is_dtensor(x) -> bool:
     if type(x) is torch.Tensor:       # the plain path pays one test
         return False
     from torch.distributed.tensor import DTensor
     return isinstance(x, DTensor)
 
 
+def _even(pl, parts, mesh) -> list:
+    """Placements ``pl`` with every ``Shard(d)`` that would split the
+    ``parts[d]`` parts of dim d unevenly (mesh dims taken in order)
+    turned into ``Replicate()``: DTensor views refuse an uneven split
+    where XLA pads one."""
+    from torch.distributed.tensor import Replicate
+    pl, split = list(pl), {}
+    for i, p in enumerate(pl):
+        if p.is_shard() and p.dim in parts:
+            n = split.get(p.dim, 1) * mesh.size(i)
+            if parts[p.dim] % n:
+                pl[i] = Replicate()
+            else:
+                split[p.dim] = n
+    return pl
+
+
 def _redistribute(x, logicals):
+    """``x`` laid out as ``logicals`` say, a dim split over a mesh axis only
+    while it splits evenly."""
     mesh = x.device_mesh
     spec = ax(*logicals, names=mesh.mesh_dim_names)
-    return x.redistribute(mesh, placements(spec, mesh))
+    return x.redistribute(mesh, _even(placements(spec, mesh),
+                                      dict(enumerate(x.shape)), mesh))
 
 
 def constrain(x, *logicals: Optional[str]):
     """``x`` laid out as ``logicals`` say, on its own mesh; a plain tensor
     is returned unchanged."""
-    if not _is_dtensor(x):
+    if not is_dtensor(x):
         return x
     return _redistribute(x, logicals)
 
@@ -202,29 +248,77 @@ def constrain(x, *logicals: Optional[str]):
 def weight_gather(cfg, w, axes):
     """A DTensor weight gathered over its fsdp dims (tensor dims kept)
     when ``cfg.gather_weights``; a plain tensor is returned unchanged."""
-    if not getattr(cfg, "gather_weights", False) or not _is_dtensor(w):
+    if not getattr(cfg, "gather_weights", False) or not is_dtensor(w):
         return w
     return _redistribute(w, [a if a == "tensor" else None for a in axes])
 
 
 def whole_dim(x, dim, n):
-    """``x`` with tensor dim ``dim`` gathered on every mesh dim that
-    cannot split its ``n`` parts (heads) evenly; DTensor views refuse an
-    uneven split where XLA pads one. A plain tensor is returned
-    unchanged."""
-    if not _is_dtensor(x):
+    """``x`` with tensor dim ``dim`` gathered on every mesh dim, in mesh
+    order, past which its ``n`` parts (heads, token groups) no longer
+    split evenly. A plain tensor is returned unchanged."""
+    if not is_dtensor(x):
         return x
+    pl = _even(x.placements, {dim: n}, x.device_mesh)
+    return x if pl == list(x.placements) else x.redistribute(x.device_mesh,
+                                                             pl)
+
+
+def blocks(xs, pls) -> list:
+    """Each rank's blocks of DTensors ``xs`` (on one mesh), each laid out
+    by its list of placements in ``pls``, for a computation on blocks (a
+    local map). A block's gradient is Partial on every mesh dim that
+    splits some input but not this one: each rank's part of the
+    computation adds its share of that input's gradient."""
+    from torch.distributed.tensor import Partial
+    mesh = xs[0].device_mesh
+    split = [any(pl[i].is_shard() for pl in pls) for i in range(mesh.ndim)]
+    return [x.redistribute(mesh, pl).to_local(grad_placements=[
+        Partial() if cut and not p.is_shard() else p
+        for cut, p in zip(split, pl)]) for x, pl in zip(xs, pls)]
+
+
+def from_blocks(t, mesh, pl, shape):
+    """The DTensor of ``shape`` whose blocks, laid out by ``pl``, are each
+    rank's ``t`` (contiguous)."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t.contiguous(), mesh, pl, run_check=False,
+                              shape=shape, stride=torch.empty(
+                                  shape, device="meta").stride())
+
+
+def local_rows(fn, *xs):
+    """``fn(*xs)`` for a ``fn`` whose every row (dim 0) is computed from
+    the same row of each input alone. On DTensors each rank runs ``fn``
+    on its own rows: every input is laid out split on dim 0 as the first
+    is and whole on every other dim, and each output (a tensor or a
+    tuple) comes back split alike. Plain tensors: ``fn(*xs)``."""
+    if not is_dtensor(xs[0]):
+        return fn(*xs)
     from torch.distributed.tensor import Replicate
-    mesh = x.device_mesh
-    pl = [Replicate() if p.is_shard(dim) and n % mesh.size(i) else p
-          for i, p in enumerate(x.placements)]
-    return x if pl == list(x.placements) else x.redistribute(mesh, pl)
+    mesh, rows = xs[0].device_mesh, xs[0].shape[0]
+    pl = [p if p.is_shard(0) else Replicate() for p in xs[0].placements]
+    xs = [replicated_like(x, xs[0]) for x in xs]
+    out = fn(*blocks(xs, [pl] * len(xs)))
+
+    def wrap(t):
+        return from_blocks(t, mesh, pl, (rows,) + tuple(t.shape[1:]))
+    return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+
+
+def laid_out_like(t, ref):
+    """``t`` laid out as DTensor ``ref`` is (a gradient as its parameter:
+    the reduce-scatter of a sharded weight's gradient), else ``t``."""
+    if not is_dtensor(ref):
+        return t
+    return replicated_like(t, ref).redistribute(ref.device_mesh,
+                                                ref.placements)
 
 
 def replicated_like(t, ref):
     """``t`` replicated on ``ref``'s mesh when ``ref`` is a DTensor, else
     ``t`` itself."""
-    if not _is_dtensor(ref) or _is_dtensor(t):
+    if not is_dtensor(ref) or is_dtensor(t):
         return t
     from torch.distributed.tensor import DTensor, Replicate
     mesh = ref.device_mesh
@@ -232,6 +326,48 @@ def replicated_like(t, ref):
                               run_check=False)
 
 
+def _block(x, dim):
+    """(offset, length) of this rank's block of DTensor ``x`` on ``dim``."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    shape, offset = compute_local_shape_and_global_offset(
+        x.shape, x.device_mesh, x.placements)
+    return offset[dim], shape[dim]
+
+
+def index_copy_(dst, dim, index, src):
+    """``dst.index_copy_(dim, index, src)`` (``index`` 1-D, no repeats).
+    On a DTensor ``dst`` each rank writes into its own block the entries
+    of ``index`` that fall in it: ``src`` is laid out as ``dst`` but
+    whole on ``dim`` (a redistribution where it is split there), the
+    index is read whole. One index is written without a host sync (off
+    the block, the place keeps its value)."""
+    if not is_dtensor(dst):
+        return dst.index_copy_(dim, index, src)
+    from torch.distributed.tensor import Replicate
+    mesh = dst.device_mesh
+    whole_on_dim = [Replicate() if p.is_shard(dim) else p
+                    for p in dst.placements]
+    src = replicated_like(src, dst).redistribute(mesh, whole_on_dim)
+    src = src.to_local()
+    if is_dtensor(index):
+        index = index.redistribute(mesh, [Replicate()] * mesh.ndim)
+        index = index.to_local()
+    offset, n = _block(dst, dim)
+    if n == 0:
+        return dst
+    local, at = dst.to_local(), index.long() - offset
+    inside = (at >= 0) & (at < n)
+    if at.numel() == 1:
+        at = at.clamp(0, n - 1)
+        local.index_copy_(dim, at, torch.where(
+            inside, src, local.index_select(dim, at)))
+    else:
+        keep = inside.nonzero()[:, 0]
+        local.index_copy_(dim, at[keep], src.index_select(dim, keep))
+    return dst
+
+
 def local(x):
     """The plain tensor of ``x``: a DTensor gathered whole, else ``x``."""
-    return x.full_tensor() if _is_dtensor(x) else x
+    return x.full_tensor() if is_dtensor(x) else x

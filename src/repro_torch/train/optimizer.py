@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.models.layers import tree_leaves, tree_map
 from repro_torch.models.model import dtype_of
+from repro_torch.models.sharding import laid_out_like
 
 
 class AdamConfig(NamedTuple):
@@ -70,7 +71,9 @@ def global_norm(tree):
 @torch.no_grad()
 def adam_update(params, grads, state: AdamState, cfg: AdamConfig):
     """One AdamW step with global-norm clipping. Returns (params, state,
-    metrics); the inputs are not written."""
+    metrics); the inputs are not written. DTensor gradients are laid out
+    as their params first, so the new params and moments keep the
+    params' placements (``adam_specs``); the step is replicated."""
     step = state.step + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
@@ -80,7 +83,7 @@ def adam_update(params, grads, state: AdamState, cfg: AdamConfig):
     bc2 = 1.0 - b2 ** step.float()
 
     def upd(p, g, m, v):
-        g = g.float() * scale
+        g = laid_out_like(g, p).float() * scale
         m2 = b1 * m.float() + (1 - b1) * g
         v2 = b2 * v.float() + (1 - b2) * g * g
         d = (m2 / bc1) / (torch.sqrt(v2 / bc2) + cfg.eps)

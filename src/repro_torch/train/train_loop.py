@@ -38,15 +38,21 @@ def make_step(cfg, adam: Opt.AdamConfig):
         False
 
     def step(params, opt_state, batch):
-        params = tree_map(lambda p: p.detach().requires_grad_(), params)
-        leaves = tree_leaves(params)
-        loss = Mdl.loss_fn(cfg, params, batch)
-        grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True,
-                                         materialize_grads=True))
-        grads = tree_map(lambda p: next(grads), params)
+        loss, grads = loss_and_grads(cfg, params, batch)
         params, opt_state, _ = Opt.adam_update(params, grads, opt_state, adam)
-        return params, opt_state, loss.detach()
+        return params, opt_state, loss
     return step
+
+
+def loss_and_grads(cfg, params, batch):
+    """(the loss, its gradient as a tree like ``params``) by autograd;
+    ``params`` are not written."""
+    params = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss = Mdl.loss_fn(cfg, params, batch)
+    grads = iter(torch.autograd.grad(loss, tree_leaves(params),
+                                     allow_unused=True,
+                                     materialize_grads=True))
+    return loss.detach(), tree_map(lambda p: next(grads), params)
 
 
 def run(cfg, *, steps=50, batch=4, seq=64, ckpt_dir=None, ckpt_every=20,
