@@ -7,7 +7,8 @@ GPU baseline, the cost model, the LM serving path with retrieval-
 augmented serving over a live index, the MoE, SSM, hybrid, VLM and
 enc-dec serving paths at their published widths, training, the dry
 run's step bundles beside their roofline bounds, and every LM family's
-steps run sharded under DTensor.
+steps run sharded under DTensor; and, named alone, the sharded paths on
+four cards over NCCL.
 
 Usage: python3 chip_smoke.py [--seed S] [--only PHASES]
 
@@ -16,6 +17,8 @@ there is no CPU branch). ``--only`` runs a comma-separated subset of
 kernels, parity, write_parity, durability, main, tiered, consolidation,
 partitioned, distributed, baselines, calibrate, serve, families, train,
 launch, sharded; the kernels line is printed only when all run.
+four_cards runs only when named (``--only four_cards``), on a machine
+with four cards, and exits non-zero on fewer.
 
 1. device        card name and power limit (nvidia-smi), torch and CUDA.
 2. build         nvcc builds every kernel (l2_gather, pq_adc, row_gather,
@@ -192,14 +195,41 @@ launch, sharded; the kernels line is printed only when all run.
                  DTensors, every op accepted and every param's block of
                  ``shard_shape``; the fake collectives carry no data, so
                  no value is checked there.
+19. four_cards   (named only; 4 cards) four rank processes, one a card,
+                 in an NCCL group, polled by ``run_ranks`` (at the first
+                 that fails the rest are killed and its error printed).
+                 (e) ``ef_int8_psum`` and ``make_crosspod_grad_sync``
+                 over the four against the mean of their ``ef_compress``
+                 in one process, ``remesh`` (2, 2) -> (1, 2), a
+                 checkpoint restored onto (2, 2). (c) every sharded case
+                 on a (2, 2) NCCL mesh, each rank against one process on
+                 its card, the sharded phase's tolerances. (a) the
+                 sharded search at Deep1B's width: each rank builds a
+                 262,144 x 96 graph (131,072 cache slots) on its card;
+                 layouts (4,) data, (2, 2) pod x data, (2, 2) data x
+                 query, 1,024 queries (and 10,240 on (4,)); every rank's
+                 answer equal to rank 0's one-process merge of the
+                 shards' searches with the same entries; recall@10, step
+                 ms (CUDA events after a barrier, the max over the
+                 ranks), l2_gather launches a rank, all-gathers. (b)
+                 svfusion-msturing search_1k at its h100x4 shape, 200M x
+                 100, each rank drawing its own 50M-row shard: the bundle
+                 against the direct step, step ms beside the h100x4
+                 bound, peak bytes a card, l2_gather at the 50M-row
+                 table. (d) SmolLM-135M train_4k at batch 32 (8 a card)
+                 on (1, 4) and (2, 2): the loss against one process,
+                 step ms beside the h100x4 dry run's bound.
 
 Then the kernels line, the card line, and the final status line.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
+import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -218,6 +248,7 @@ PHASES = ("kernels", "parity", "write_parity", "durability", "main",
           "tiered", "consolidation", "partitioned", "distributed",
           "baselines", "calibrate", "serve", "families", "train", "launch",
           "sharded")
+EXTRA_PHASES = ("four_cards",)   # run only when named in --only
 
 
 def emit(phase, **kw):
@@ -2263,6 +2294,53 @@ def _free_port():
         return s.getsockname()[1]
 
 
+def _tail(f):
+    f.flush()
+    f.seek(0)
+    return f.read()[-4000:]
+
+
+def run_ranks(cmds, timeout, env=None, show=None):
+    """Start one process a command (a rank each) and wait for all of them,
+    polling ten times a second: at the first that exits non-zero,
+    or after ``timeout`` seconds, kill every rank still running (its
+    whole process group) and raise with that rank's output. The standard
+    output of rank ``show`` passes through to this process's; every
+    other stream goes to the rank's log. Returns the seconds taken."""
+    t0 = time.perf_counter()
+    procs = []
+    with tempfile.TemporaryDirectory() as td:
+        logs = [open(Path(td) / f"rank{r}.log", "w+") for r in
+                range(len(cmds))]
+        try:
+            for r, cmd in enumerate(cmds):
+                procs.append(subprocess.Popen(
+                    cmd, env=env, stdout=None if r == show else logs[r],
+                    stderr=logs[r], start_new_session=True))
+            while True:
+                codes = [p.poll() for p in procs]
+                bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
+                if bad:
+                    raise AssertionError(f"rank {bad[0]} of {len(cmds)} "
+                                         f"exited {codes[bad[0]]}:\n"
+                                         f"{_tail(logs[bad[0]])}")
+                if all(c == 0 for c in codes):
+                    return time.perf_counter() - t0
+                if time.perf_counter() - t0 > timeout:
+                    late = [r for r, c in enumerate(codes) if c is None]
+                    raise AssertionError(
+                        f"ranks {late} still running after {timeout} s; "
+                        f"rank {late[0]}:\n{_tail(logs[late[0]])}")
+                time.sleep(0.1)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    os.killpg(p.pid, signal.SIGKILL)
+                    p.wait()
+            for f in logs:
+                f.close()
+
+
 def index_arrays(state):
     """The sharded search's arrays (``distributed.INDEX_FIELDS``) of one
     whole index: its first n rows and its cache."""
@@ -2384,24 +2462,10 @@ def phase_distributed(gen, dev, seed, main=None, state=None, n=262_144,
             np.savez(f"{td}/shard{s}.npz",
                      **{f: x.cpu().numpy() for f, x in idx.items()})
         np.save(f"{td}/queries.npy", q.cpu().numpy())
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "--dist-child",
-             td, "--dist-rank", str(r), "--seed", str(seed)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for r in range(2)]
-        try:
-            for r, p in enumerate(procs):
-                out, _ = p.communicate(timeout=child_timeout)
-                if p.returncode != 0:
-                    raise AssertionError(f"gloo rank {r} exited "
-                                         f"{p.returncode}:\n{out[-3000:]}")
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        group_s = time.perf_counter() - t0
+        group_s = run_ranks(
+            [[sys.executable, str(ROOT / "chip_smoke.py"), "--dist-child",
+              td, "--dist-rank", str(r), "--seed", str(seed)]
+             for r in range(2)], child_timeout)
         got = [np.load(f"{td}/rank{r}.npz") for r in range(2)]
     for r, z in enumerate(got):
         for f, want in zip(("ids", "dists"), merged):
@@ -3684,12 +3748,14 @@ def sharded_bundles(arch, impl, mesh):
     return out
 
 
-def sharded_inputs(cfg, seed):
+def sharded_inputs(cfg, seed, dev=None):
     """Params (fp32, from the seed) and the cell's batches: the train
     batch, the prefill batch, the decode prompt (its first
-    SHARDED_PROMPT positions) and a decode token."""
+    SHARDED_PROMPT positions) and a decode token; drawn on the CPU, the
+    same in every process, and moved to ``dev`` (default: the CPU)."""
     import torch
     from repro_torch.models import model as M
+    from repro_torch.models.layers import tree_map
     rng = np.random.default_rng(seed)
     B, S = SHARDED_B, SHARDED_S
     P = cfg.n_patches if cfg.family == "vlm" else 0
@@ -3702,13 +3768,14 @@ def sharded_inputs(cfg, seed):
 
     def batch(**kw):
         return {k: torch.as_tensor(v, dtype=torch.int32 if v.dtype.kind
-                                   == "i" else torch.float32)
+                                   == "i" else torch.float32, device=dev)
                 for k, v in dict(kw, **extra).items()}
-    params = M.init_params(cfg, torch.Generator().manual_seed(seed))
+    params = tree_map(lambda a: a.to(dev),
+                      M.init_params(cfg, torch.Generator().manual_seed(seed)))
     return (params, batch(tokens=tok, labels=np.roll(tok, -1, 1)),
             batch(tokens=tok), batch(tokens=tok[:, :SHARDED_PROMPT - P]),
             torch.as_tensor(rng.integers(0, cfg.vocab, (B, 1)),
-                            dtype=torch.int32))
+                            dtype=torch.int32, device=dev))
 
 
 def _whole(x):
@@ -3754,7 +3821,7 @@ def _laid_out(tree, specs, mesh):
 
 def _collectives_mode():
     """A dispatch mode that records the collectives DTensor issues (name,
-    output shape)."""
+    output shape), not the ``wait_tensor`` that completes each."""
     from torch.distributed.tensor import DTensor
     from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -3767,17 +3834,19 @@ def _collectives_mode():
             if any(issubclass(t, DTensor) for t in types):
                 return NotImplemented      # DTensor lowers to collectives
             out = func(*args, **(kwargs or {}))
-            if func.namespace == "_c10d_functional":
+            if (func.namespace == "_c10d_functional"
+                    and func.__name__.split(".")[0] != "wait_tensor"):
                 self.ops.append([func.__name__.split(".")[0],
                                  list(out.shape)])
             return out
     return Collectives()
 
 
-def sharded_case(arch, impl, mesh, seed):
-    """One case of part (a) on this gloo rank: the train step (and its
-    gradients alone), the prefill and two decode steps run sharded by
-    ``run_sharded`` against the same bundles in one process."""
+def sharded_case(arch, impl, mesh, seed, dev=None):
+    """One case on this rank (a gloo rank on the CPU, or an NCCL rank with
+    ``dev`` its card): the train step (and its gradients alone), the
+    prefill and two decode steps run sharded by ``run_sharded`` against
+    the same bundles in one process, on the same device."""
     import dataclasses
     import torch
     from repro_torch.launch import steps as Steps
@@ -3788,7 +3857,7 @@ def sharded_case(arch, impl, mesh, seed):
     t0 = time.perf_counter()
     bundles = sharded_bundles(arch, impl, mesh)
     cfg, one, sb = bundles["train"]
-    params, batch, pbatch, prompt, tok = sharded_inputs(cfg, seed)
+    params, batch, pbatch, prompt, tok = sharded_inputs(cfg, seed, dev)
     rec = _collectives_mode()
     opt = Opt.init_adam(params, Steps.adam_config(cfg))
     want = one.fn(params, opt, batch)
@@ -3871,26 +3940,23 @@ def sharded_cpu(seed, timeout=300):
     import torch
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as td:
-        env = dict(__import__("os").environ, OMP_NUM_THREADS="2")
-        procs = [subprocess.Popen(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "--sharded-child",
-             td, "--sharded-rank", str(r), "--seed", str(seed)],
-            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True) for r in range(SHARDED_WORLD)]
-        try:
-            for p in procs:
-                _, err = p.communicate(timeout=timeout)
-                if p.returncode != 0:
-                    raise AssertionError(f"sharded rank: {err[-3000:]}")
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
+        run_ranks([[sys.executable, str(ROOT / "chip_smoke.py"),
+                    "--sharded-child", td, "--sharded-rank", str(r),
+                    "--seed", str(seed)] for r in range(SHARDED_WORLD)],
+                  timeout, env=dict(os.environ, OMP_NUM_THREADS="2"))
         ranks = [json.loads((Path(td) / f"rank{r}.json").read_text())
                  for r in range(SHARDED_WORLD)]
-    where = (f"{SHARDED_WORLD} gloo processes on the CPU (not the card), "
-             f"torch {torch.__version__}, a (2, 2) (data, model) mesh")
+    sharded_verdict(ranks, "sharded_family",
+                    f"{SHARDED_WORLD} gloo processes on the CPU (not the "
+                    f"card), torch {torch.__version__}, a (2, 2) (data, "
+                    "model) mesh")
+    return time.perf_counter() - t0
+
+
+def sharded_verdict(ranks, line, where):
+    """Every case of ``ranks`` (one {case: sharded_case record} a rank)
+    held to the tests' tolerances: one ``line`` a case with the worst
+    value over the ranks; raises at the first case beyond them."""
     for name in ranks[0]:
         rs = [rank[name] for rank in ranks]
         worst = {k: max(r[k] for r in rs) for k in rs[0]
@@ -3901,14 +3967,13 @@ def sharded_cpu(seed, timeout=300):
               and all(r["decode_ids_equal"] and r["train_laid_out"]
                       and r["prefill_laid_out"] and r["decode_laid_out"]
                       and r["decode_cache_gathers"] == 0 for r in rs))
-        emit("sharded_family", case=name, where=where,
+        emit(line, case=name, where=where,
              cell=f"{SHARDED_B} x {SHARDED_S} (decode from {SHARDED_PROMPT})",
              **{k: v for k, v in rs[0].items() if k not in worst},
              **worst, checked=ok)
         if not ok:
             raise AssertionError(f"sharded {name}: beyond the tolerances "
                                  f"or laid out otherwise: {worst}")
-    return time.perf_counter() - t0
 
 
 def sharded_card(dev):
@@ -3969,14 +4034,546 @@ def phase_sharded(dev, seed):
          "no values")
 
 
+# ---------------------------------------------------------------------------
+# four_cards: the sharded paths on four cards of one host over NCCL
+# ---------------------------------------------------------------------------
+
+FOUR = 4                      # ranks, one a card
+FOUR_GROUP_TIMEOUT_S = 180    # a collective a failed peer holds up
+FOUR_TIMEOUT_S = 480          # the four ranks' run, start to end
+# part (a)'s layouts, as tests/test_torch_distributed.py's and a plain
+# data layout: (name, mesh shape, axes, data axes, query axis)
+FOUR_LAYOUTS = (
+    ("data4_replicated", (4,), ("data",), ("data",), None),
+    ("pod2_x_data2_replicated", (2, 2), ("pod", "data"), ("pod", "data"),
+     None),
+    ("data2_x_query2", (2, 2), ("data", "model"), ("data",), "model"))
+
+
+def gather_obj(x):
+    """``x`` from every rank of the world, in rank order."""
+    import torch.distributed as dist
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, x)
+    return out
+
+
+def rank_ms(fn, steps):
+    """Milliseconds of each of ``steps`` calls of ``fn``: every rank starts
+    a call after a barrier of the world, CUDA events time it on each
+    rank, and a step's time is the largest over the ranks."""
+    import torch
+    import torch.distributed as dist
+    times = []
+    for _ in range(steps):
+        dist.barrier()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return [max(t) for t in zip(*gather_obj(times))]
+
+
+def _p(times, q):
+    return float(np.percentile(times, q))
+
+
+@contextlib.contextmanager
+def counting_all_gathers():
+    """Within the block, every all-gather of the sharded search
+    (``distributed._all_gather``) as [group size, bytes received]."""
+    import torch.distributed as dist
+    from repro_torch.core import distributed as SD
+    calls, orig = [], SD._all_gather
+
+    def counted(x, group):
+        out = orig(x, group)
+        calls.append([dist.get_world_size(group),
+                      out.numel() * out.element_size()])
+        return out
+    SD._all_gather = counted
+    try:
+        yield calls
+    finally:
+        SD._all_gather = orig
+
+
+def merge_in_step_order(ids, dists, grid, k):
+    """One process's merge of per-shard results [S, B, k'] (shard order,
+    row-major over ``grid``, the sizes of the step's data axes) in the
+    step's order: over the first data axis, then the next."""
+    import torch
+    from repro_torch.core.distributed import merge_shard_results
+    ids, dists = (x.reshape(*grid, *x.shape[1:]) for x in (ids, dists))
+    while ids.dim() > 2:
+        rest, (B, kk) = ids.shape[1:-2], ids.shape[-2:]
+        fi = ids.reshape(ids.shape[0], -1, B, kk)
+        fd = dists.reshape(dists.shape[0], -1, B, kk)
+        outs = [merge_shard_results(fi[:, r], fd[:, r], k)
+                for r in range(fi.shape[1])]
+        ids = torch.stack([o[0] for o in outs]).reshape(*rest, B, k)
+        dists = torch.stack([o[1] for o in outs]).reshape(*rest, B, k)
+    return ids, dists
+
+
+def four_search(dev, seed, cards, n=262_144, d=96, b=1024, big=10_240,
+                cache_slots=131_072, steps=10):
+    """(a) The sharded search at Deep1B's width on graphs built per card:
+    rank 0 draws 4 x ``n`` synthetic descriptors and ``big`` queries,
+    each rank builds a graph over its own ``n`` rows on its card, and the
+    four shards are gathered to every rank. Then each of FOUR_LAYOUTS on
+    ``b`` queries (and the (4,) layout on all ``big``): each rank's ids
+    and dists against rank 0's one-process merge of the shards'
+    ``search_shard`` results with the same entries (bit for bit),
+    recall@10 against brute force over the union, step ms (warm-up
+    first), l2_gather launches on every rank, all-gathers a step."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import distributed as SD
+    from repro_torch.core.build import build_index
+    from repro_torch.core.search import brute_force_topk, recall_at_k
+    from repro_torch.core.types import GraphState, SearchParams
+    from repro_torch.kernels.l2_gather import kernel as K
+    rank, world = dist.get_rank(), dist.get_world_size()
+    sp = SearchParams(k=10, pool=64, max_iters=64, beam=16)
+    t0 = time.perf_counter()
+    vecs = torch.empty(world * n, d, device=dev)
+    queries = torch.empty(big, d, device=dev)
+    if rank == 0:
+        draw = synthetic_descriptors(
+            torch.Generator(device=dev).manual_seed(seed), world * n, d, dev)
+        vecs.copy_(draw(world * n))
+        queries.copy_(draw(big))
+    dist.broadcast(vecs, 0)
+    dist.broadcast(queries, 0)
+    t1 = time.perf_counter()
+    mine = index_arrays(build_index(vecs[rank * n:(rank + 1) * n],
+                                    degree=32, cache_slots=cache_slots,
+                                    device=dev))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    # every shard on every rank ([world, ...] a field; bool as uint8)
+    shards = {f: SD._all_gather(x.to(torch.uint8) if x.dtype == torch.bool
+                                else x, None)
+              for f, x in mine.items()}
+    shards["alive"] = shards["alive"].bool()
+    builds = gather_obj(build_s)
+    for name, shape, axes, data_axes, qaxis in FOUR_LAYOUTS:
+        mesh = SD.RankMesh(shape, axes)
+        present = [a for a in data_axes if a in axes]
+        grid = [mesh.size(a) for a in present]
+        S = math.prod(grid)
+        shard = mesh.linear_index(present)
+        idx = {f: x[shard] for f, x in shards.items()}
+        step = SD.make_distributed_search(mesh, sp, data_axes=data_axes,
+                                          query_axis=qaxis)
+        for q in ((queries[:b], queries) if name == FOUR_LAYOUTS[0][0]
+                  else (queries[:b],)):
+            ql = mesh.block(q, qaxis) if qaxis else q
+            block = mesh.index(qaxis) if qaxis else 0
+            ent = SD.shard_entries(seed, shard, ql.shape[0], sp.pool, n, dev)
+            K.launches = 0
+            with counting_all_gathers() as gathers:
+                ids, dists = step(idx, ql, ent)   # warm-up: communicators
+            torch.cuda.synchronize()
+            launched = K.launches
+            times = rank_ms(lambda: step(idx, ql, ent), steps)
+            got = gather_obj(dict(ids=ids.cpu().numpy(),
+                                  dists=dists.cpu().numpy(),
+                                  entries=ent.cpu().numpy(), shard=shard,
+                                  block=block, launches=launched))
+            if rank != 0:
+                continue
+            nb = q.shape[0] // ql.shape[0]
+            want = []
+            for m in range(nb):
+                qm = q[m * ql.shape[0]:(m + 1) * ql.shape[0]]
+                res = [SD.search_shard(
+                    {f: x[s] for f, x in shards.items()}, qm,
+                    torch.as_tensor(next(g["entries"] for g in got
+                                         if g["shard"] == s
+                                         and g["block"] == m), device=dev),
+                    sp, offset=s * n) for s in range(S)]
+                want.append(merge_in_step_order(
+                    torch.stack([r[0] for r in res]),
+                    torch.stack([r[1] for r in res]), grid, sp.k))
+            for r, g in enumerate(got):
+                wi, wd = (x.cpu().numpy() for x in want[g["block"]])
+                if not (np.array_equal(g["ids"], wi)
+                        and np.array_equal(g["dists"], wd)):
+                    raise AssertionError(
+                        f"four_search {name}: rank {r}'s answer differs "
+                        "from the one-process merge")
+                if g["launches"] == 0:
+                    raise AssertionError(f"four_search {name}: rank {r} "
+                                         "launched no l2_gather")
+            found = torch.cat([w[0] for w in want])
+            union = GraphState(vecs[:S * n], None,
+                               torch.ones(S * n, dtype=torch.bool,
+                                          device=dev), None, None, None)
+            truth = torch.cat([brute_force_topk(union, q[i:i + 1024], 10)[0]
+                               for i in range(0, q.shape[0], 1024)])
+            recall = float(recall_at_k(found, truth))
+            emit("four_search", layout=name, mesh=list(shape),
+                 axes=list(axes), data_axes=list(present), query_axis=qaxis,
+                 shards=S, shard_rows=n, dim=d, degree=32,
+                 cache_slots=cache_slots, queries=q.shape[0],
+                 queries_a_rank=ql.shape[0], recall_at_10=recall,
+                 step_ms=times, step_p50_ms=_p(times, 50),
+                 step_p99_ms=_p(times, 99),
+                 l2_gather_launches=[g["launches"] for g in got],
+                 all_gathers=gathers,
+                 all_gather_bytes=sum(x[1] for x in gathers),
+                 identical_to="rank 0: the shards' search_shard results "
+                 "with the same entries, merged in the step's order",
+                 shard_build_s=builds,
+                 method=f"CUDA events after a barrier, the max over the "
+                 f"ranks, {steps} steps after a warm-up", cards=cards)
+            if recall < 0.5:
+                raise AssertionError(f"four_search {name}: recall@10 "
+                                     f"{recall} below 0.5")
+    if rank == 0:
+        emit("four_search_done", seconds=time.perf_counter() - t0,
+             reduced=[f"rows a shard: Deep1B's ~3.9M a chip -> {n:,} (the "
+                      "host reverse-edge pass of the build, ROADMAP "
+                      "A.13.4); synthetic descriptors from the seed"])
+
+
+def four_msturing(dev, seed, cards, shape=None, steps=5):
+    """(b) svfusion-msturing search_1k at its h100x4 shape: the bundle on a
+    (1, 4) RankMesh, each rank materializing its own 50M-row shard on its
+    card; the bundle's output against the direct step (bit for bit),
+    step ms beside the h100x4 dry run's bound, peak bytes a card, and
+    l2_gather at D = 100 on each rank's table against its plain version
+    and its bound."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.distributed import (RankMesh,
+                                              make_distributed_search)
+    from repro_torch.kernels.l2_gather import kernel as K
+    from repro_torch.launch import dryrun, steps as Steps
+    rank = dist.get_rank()
+    t0 = time.perf_counter()
+    shape = shape or Steps.SVF_SHAPES["search_1k"]
+    arch = Steps.SVF_ARCH.get(shape.name, "svfusion_msturing")
+    rec = dryrun.run_cell(arch, shape, "h100x4", write=False) \
+        if rank == 0 else None
+    if rec is not None and not rec["ok"]:
+        raise AssertionError(f"dry run of {arch}: {rec['error']}")
+    rmesh = RankMesh((1, FOUR), ("data", "model"))
+    bundle = Steps.build_svfusion_bundle(shape, rmesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    idx, q, key = Steps.materialize(
+        bundle, gen, dev, shard=rmesh.linear_index(("data", "model")))
+    q0 = q.clone()
+    dist.broadcast(q0, 0)
+    K.launches = 0
+    with counting_all_gathers() as gathers:
+        ids, dists = bundle.fn(idx, q, key)
+    torch.cuda.synchronize()
+    launched = K.launches
+    direct = make_distributed_search(
+        rmesh, Steps.SVF_PARAMS, data_axes=("data", "model"),
+        query_axis=None)(idx, q, seed=0)
+    _equal_trees((ids, dists), direct, f"{arch} {shape.name} on four cards")
+    valid = bool(((ids >= 0) & (ids < shape.n)).all())
+    times = rank_ms(lambda: bundle.fn(idx, q, key), steps)
+    peak = torch.cuda.max_memory_allocated() - before
+    n_local = idx["vectors"].shape[0]
+    kid = ids_with_holes(gen, dev, shape.batch,
+                         Steps.SVF_PARAMS.beam * shape.degree, n_local)
+    row = l2_gather_case(f"msturing_h100x4_rank{rank}", idx["vectors"],
+                         kid, q)
+    got = gather_obj(dict(launches=launched, peak=peak, valid=valid,
+                          same_queries=bool(torch.equal(q0, q)), row=row,
+                          rows=n_local))
+    if rank == 0:
+        roof = launch_roofline(rec)
+        emit("four_msturing", arch=arch, shape=shape.name, mesh=[1, FOUR],
+             rows=shape.n, rows_a_card=[g["rows"] for g in got],
+             dim=shape.dim, degree=shape.degree, queries=shape.batch,
+             reduced=[], data="synthetic vectors and neighbour lists from "
+             "the seed, drawn a shard a card", step_ms=times,
+             step_p50_ms=_p(times, 50), step_p99_ms=_p(times, 99),
+             **roof, measured_over_bound=_p(times, 50) / roof["bound_ms"],
+             collectives_dry_run=rec["collectives"], all_gathers=gathers,
+             argument_bytes_dry_run=rec["memory"]["argument_bytes"],
+             peak_device_bytes=[g["peak"] for g in got],
+             allocated_before_bytes=before,
+             l2_gather_launches=[g["launches"] for g in got],
+             l2_gather=[g["row"] for g in got],
+             queries_equal_on_every_rank=all(g["same_queries"] for g in got),
+             ids_valid=all(g["valid"] for g in got),
+             equal_to_direct_call=True, seconds=time.perf_counter() - t0,
+             method=f"CUDA events after a barrier, the max over the ranks, "
+             f"{steps} steps after a warm-up", cards=cards)
+        for r, g in enumerate(got):
+            if not (g["launches"] and g["valid"] and g["same_queries"]):
+                raise AssertionError(f"four_msturing: rank {r}: {g}")
+    del idx, q, kid, direct
+    torch.cuda.empty_cache()
+
+
+def four_sharded(dev, seed, cards):
+    """(c) Every SHARDED_CASES case on a (2, 2) NCCL mesh, each rank on its
+    card against one process on that card, held to the sharded phase's
+    tolerances."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+    t0 = time.perf_counter()
+    mesh = make_test_mesh((2, 2), ("data", "model"))
+    res = {}
+    for arch, impl in SHARDED_CASES:
+        res[arch + ("-" + impl if impl else "")] = sharded_case(
+            arch, impl, mesh, seed, dev)
+    ranks = gather_obj(res)
+    if dist.get_rank() == 0:
+        sharded_verdict(ranks, "four_sharded_family",
+                        f"{FOUR} {dist.get_backend()} ranks on "
+                        f"{dev.type} (one a card under nccl), torch "
+                        f"{torch.__version__}, a (2, 2) (data, model) mesh; "
+                        f"cards: {cards}")
+        emit("four_sharded", cases=len(res),
+             seconds=time.perf_counter() - t0)
+
+
+def four_smollm(dev, seed, cards, batch=32, seq=None, steps=3,
+                meshes=((1, FOUR), (2, 2))):
+    """(d) SmolLM-135M's train_4k step at its width, global batch ``batch``,
+    on each of ``meshes``: the first step's loss against the mean of the
+    four one-process losses of each rank's rows, then step ms beside the
+    dry run of the cut shape on that mesh, and peak bytes a card."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import SHAPES, load_config
+    from repro_torch.launch import dryrun, steps as Steps
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.sharding import MeshDesc, local
+    from repro_torch.train import optimizer as Opt
+    rank, world = dist.get_rank(), dist.get_world_size()
+    arch = "smollm_135m"
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=batch,
+                                **({"seq_len": seq} if seq else {}))
+    cfg = Steps.tune_config(load_config(arch), shape)
+    for mshape in meshes:
+        t0 = time.perf_counter()
+        desc = MeshDesc("h100x4" if tuple(mshape) == (1, FOUR)
+                        else "h100x4_" + "x".join(map(str, mshape)),
+                        ("data", "model"), tuple(mshape))
+        rec = dryrun.run_cell(arch, shape, desc, write=False) \
+            if rank == 0 else None
+        if rec is not None and not rec["ok"]:
+            raise AssertionError(f"dry run of {arch}: {rec['error']}")
+        mesh = make_test_mesh(mshape, ("data", "model"))
+        sb = Steps.step_bundle(arch, shape, cfg, mesh=mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        # drawn on the CPU: the same inputs on every rank
+        params, opt, data = Steps.materialize(
+            sb, torch.Generator().manual_seed(seed), "cpu")
+        params = tree_map(lambda a: a.to(dev), params)
+        opt = Opt.AdamState(opt.step.to(dev),
+                            *(tree_map(lambda a: a.to(dev), t)
+                              for t in opt[1:]))
+        data = tree_map(lambda a: a.to(dev), data)
+        rows = batch // world                # rank r's rows: block r
+        with torch.no_grad():
+            mine = M.loss_fn(cfg, params, {
+                k: v[rank * rows:(rank + 1) * rows] for k, v in data.items()})
+        one = torch.tensor([float(mine)], device=dev)
+        dist.all_reduce(one)
+        one = float(one) / world
+        state = list(Steps.run_sharded(sb, (params, opt, data), mesh))
+        first = float(local(state[2]))
+        del params, opt
+
+        def step():
+            state[:] = Steps.run_sharded(sb, (state[0], state[1], data),
+                                         mesh)
+        times = rank_ms(step, steps)
+        peak = gather_obj(torch.cuda.max_memory_allocated() - before)
+        gap = abs(first - one) / abs(one)
+        if rank == 0:
+            roof = launch_roofline(rec)
+            emit("four_smollm", arch=arch, shape=shape.name, mesh=list(mshape),
+                 global_batch=batch, rows_a_card=rows, seq_len=shape.seq_len,
+                 reduced=[f"global batch 256 -> {batch} ({rows} a card, the "
+                          "one-card launch cell's)"], rules=sb.rules,
+                 loss_sharded=first, loss_one_process_mean=one,
+                 loss_gap=gap, step_ms=times, step_p50_ms=_p(times, 50),
+                 step_p99_ms=_p(times, 99), **roof,
+                 measured_over_bound=_p(times, 50) / roof["bound_ms"],
+                 model_flops=rec["model_flops"], memory=rec["memory"],
+                 peak_device_bytes=peak, allocated_before_bytes=before,
+                 seconds=time.perf_counter() - t0,
+                 method=f"CUDA events after a barrier, the max over the "
+                 f"ranks, {steps} steps after the checked first",
+                 cards=cards)
+        if gap > 1e-4:
+            raise AssertionError(f"four_smollm {mshape}: loss {first} "
+                                 f"against {one} one process")
+        del state, data
+        torch.cuda.empty_cache()
+
+
+def four_rest(dev, seed, cards, root, rows=1024, cols=4096):
+    """(e) ``ef_int8_psum`` and ``make_crosspod_grad_sync`` over the world
+    against the mean of every rank's ``ef_compress`` in one process;
+    ``remesh`` from a (2, 2) mesh to a 2-rank one; a checkpoint restored
+    onto the (2, 2) mesh by ``restore(shardings=)``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.sharding import NamedSharding
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.compression import (ef_compress, ef_int8_psum,
+                                               make_crosspod_grad_sync,
+                                               remesh)
+    rank, world = dist.get_rank(), dist.get_world_size()
+
+    def inputs(r):        # rank r's gradient and error, drawn on the CPU
+        g = torch.Generator().manual_seed(seed * 1000 + r)
+        return (torch.randn(rows, cols, generator=g).to(dev),
+                torch.randn(rows, cols, generator=g).to(dev) * 1e-3)
+    every = [inputs(r) for r in range(world)]
+    g, e = every[rank]
+    got, got_err = ef_int8_psum(g, e)
+    tree, tree_err = make_crosspod_grad_sync()({"w": g}, {"w": e})
+    comp = [ef_compress(*x) for x in every]
+    want = torch.stack([c[0] for c in comp]).mean(0)
+    scale = float(want.abs().max())
+    psum_err = max(float((got - want).abs().max()),
+                   float((tree["w"] - want).abs().max())) / scale
+    err_equal = bool(torch.equal(got_err, comp[rank][1])
+                     and torch.equal(tree_err["w"], comp[rank][1]))
+
+    big = make_test_mesh((2, 2), ("data", "model"))
+    small = make_test_mesh((1, 2), ("data", "model"))
+    x = {"w": torch.arange(64.0, device=dev).reshape(8, 8),
+         "b": torch.ones(8, device=dev)}
+    spec = {"w": (("data",), ("model",)), "b": (("data",),)}
+    placed = {k: NamedSharding(big, spec[k]).place(v) for k, v in x.items()}
+    moved = remesh(placed, spec, small)
+    in_small = rank < small.size()
+    remesh_equal = (not in_small) or all(
+        torch.equal(moved[k].full_tensor(), x[k]) for k in x)
+
+    ckpt = CheckpointManager(str(Path(root) / "ckpt"))
+    if rank == 0:
+        ckpt.save(3, {k: v.cpu() for k, v in x.items()})
+    dist.barrier()
+    step, back = ckpt.restore(x, shardings={k: NamedSharding(big, spec[k])
+                                            for k in x})
+    restore_equal = step == 3 and all(
+        torch.equal(back[k].full_tensor(), x[k]) for k in x)
+    got = gather_obj(dict(psum_err=psum_err, err_equal=err_equal,
+                          remesh_equal=remesh_equal, in_small=in_small,
+                          remesh_local=list(moved["w"].to_local().shape),
+                          restore_equal=restore_equal,
+                          restore_local=list(back["w"].to_local().shape)))
+    if rank == 0:
+        emit("four_rest", ranks=world, psum_shape=[rows, cols],
+             psum_err_over_max=max(r["psum_err"] for r in got),
+             psum_tol=1e-6, psum_new_err_equal=[r["err_equal"] for r in got],
+             remesh_from=[2, 2], remesh_to=[1, 2],
+             remesh_equal=[r["remesh_equal"] for r in got],
+             remesh_local=[r["remesh_local"] for r in got],
+             restore_equal=[r["restore_equal"] for r in got],
+             restore_local=[r["restore_local"] for r in got], cards=cards)
+        for r, res in enumerate(got):
+            if not (res["psum_err"] <= 1e-6 and res["err_equal"]
+                    and res["remesh_equal"] and res["restore_equal"]):
+                raise AssertionError(f"four_rest: rank {r}: {res}")
+
+
+def four_rank(rank, init, seed, root, backend="nccl"):
+    """The body of a four_cards rank: its device (``rank_device``: its own
+    card under NCCL) made current before it joins the group, a group
+    timeout of FOUR_GROUP_TIMEOUT_S, then parts (e), (c), (a), (b), (d)
+    and a barrier; rank 0 prints the lines. An NCCL group is left to the
+    process's exit (``four_cards_child``): ``destroy_process_group``
+    hung on torch 2.11 with NCCL 2.28 after every part had passed."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import rank_device
+    dev = rank_device(backend, rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        backend, init_method=init, world_size=FOUR, rank=rank,
+        timeout=datetime.timedelta(seconds=FOUR_GROUP_TIMEOUT_S),
+        **({"device_id": dev} if dev.type == "cuda" else {}))
+    cards = card_line().splitlines()
+    four_rest(dev, seed, cards, root)
+    four_sharded(dev, seed, cards)
+    four_search(dev, seed, cards)
+    four_msturing(dev, seed, cards)
+    four_smollm(dev, seed, cards)
+    dist.barrier()
+    torch.cuda.synchronize()
+    if backend != "nccl":
+        dist.destroy_process_group()
+
+
+def four_cards_child(args):
+    """A four_cards rank (``--four-child DIR --four-rank R --four-init
+    URL``, hidden arguments): exits 0 after ``four_rank``, 1 with its
+    traceback if it raised, without tearing its NCCL group down."""
+    import traceback
+    code = 0
+    try:
+        four_rank(args.four_rank, args.four_init, args.seed, args.four_child)
+    except BaseException:
+        traceback.print_exc()
+        code = 1
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
+
+
+def phase_four_cards(seed, timeout=FOUR_TIMEOUT_S):
+    """The sharded paths on FOUR cards of this host over NCCL, one rank
+    process a card (``four_rank``), polled by ``run_ranks``: rank 0's
+    lines pass through; at the first rank that fails the rest are killed
+    and its error raised. Never run on fewer cards."""
+    import torch
+    if torch.cuda.device_count() < FOUR:
+        raise AssertionError(f"four_cards needs {FOUR} cards, this machine "
+                             f"has {torch.cuda.device_count()}")
+    with tempfile.TemporaryDirectory() as td:
+        env = dict(os.environ, NCCL_DEBUG="WARN", OMP_NUM_THREADS=str(
+            max(1, (os.cpu_count() or FOUR) // FOUR)))
+        init = f"tcp://localhost:{_free_port()}"
+        seconds = run_ranks(
+            [[sys.executable, str(ROOT / "chip_smoke.py"), "--four-child",
+              td, "--four-rank", str(r), "--four-init", init, "--seed",
+              str(seed)] for r in range(FOUR)], timeout, env=env, show=0)
+    emit("four_cards", ranks=FOUR, backend="nccl", seconds=seconds,
+         cards=card_line().splitlines())
+
+
 def main():
     import torch
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default=",".join(PHASES),
                     help="comma-separated subset of "
-                    f"{','.join(PHASES)} (default: all; the kernels line "
-                    "is printed only when all run)")
+                    f"{','.join(PHASES + EXTRA_PHASES)} (default: all but "
+                    f"{','.join(EXTRA_PHASES)}; the kernels line is printed "
+                    "only when all the default phases run)")
     # the durability phase's crash children (see crash_child)
     ap.add_argument("--crash-child", help=argparse.SUPPRESS)
     ap.add_argument("--crash-point", help=argparse.SUPPRESS)
@@ -3987,6 +4584,10 @@ def main():
     # the sharded phase's gloo ranks (see sharded_child)
     ap.add_argument("--sharded-child", help=argparse.SUPPRESS)
     ap.add_argument("--sharded-rank", type=int, help=argparse.SUPPRESS)
+    # the four_cards phase's NCCL ranks (see four_cards_child)
+    ap.add_argument("--four-child", help=argparse.SUPPRESS)
+    ap.add_argument("--four-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--four-init", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs only on the "
@@ -3997,9 +4598,15 @@ def main():
         dist_child(args)
     if args.sharded_child:
         sharded_child(args)
+    if args.four_child:
+        four_cards_child(args)
     only = args.only.split(",")
-    if set(only) - set(PHASES):
-        sys.exit(f"chip_smoke: unknown phases {set(only) - set(PHASES)}")
+    if set(only) - set(PHASES + EXTRA_PHASES):
+        sys.exit("chip_smoke: unknown phases "
+                 f"{set(only) - set(PHASES + EXTRA_PHASES)}")
+    if "four_cards" in only and torch.cuda.device_count() < FOUR:
+        sys.exit(f"chip_smoke: four_cards needs {FOUR} cards; this machine "
+                 f"has {torch.cuda.device_count()}")
     from repro_torch.kernels import _build
     from repro_torch.core.types import SearchParams
 
@@ -4072,6 +4679,8 @@ def main():
         l2_launch_launches, l2_msturing = phase_launch(dev, args.seed)
     if "sharded" in only:
         phase_sharded(dev, args.seed)
+    if "four_cards" in only:
+        phase_four_cards(args.seed)
     emit("phases", ran=only, seconds=time.perf_counter() - t_run)
 
     if only == list(PHASES):

@@ -106,12 +106,17 @@ class RankMesh:
         return x[i * m:(i + 1) * m]
 
 
-def shard_entries(seed, shard, batch, pool, n_local, device):
-    """Entry points [batch, pool] int32 of shard ``shard``, from a
-    generator on ``device`` seeded from (seed, shard)."""
+def shard_generator(seed, shard, device):
+    """A ``torch.Generator`` on ``device`` seeded from (seed, shard)."""
     s = int(np.random.SeedSequence([seed, shard]).generate_state(1)[0])
-    gen = torch.Generator(device=device).manual_seed(s)
-    return torch.randint(0, n_local, (batch, pool), generator=gen,
+    return torch.Generator(device=device).manual_seed(s)
+
+
+def shard_entries(seed, shard, batch, pool, n_local, device):
+    """Entry points [batch, pool] int32 of shard ``shard``, from
+    ``shard_generator(seed, shard, device)``."""
+    return torch.randint(0, n_local, (batch, pool),
+                         generator=shard_generator(seed, shard, device),
                          dtype=torch.int32, device=device)
 
 

@@ -25,16 +25,32 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshDesc:
     return MESHES["pod512" if multi_pod else "pod256"]
 
 
+def rank_device(backend=None, rank=None):
+    """The device a rank of the process group computes on: under NCCL its
+    own card, ``cuda:<rank>`` (one rank a card, all on one host), under
+    gloo the CPU. ``backend`` and ``rank`` default to the initialised
+    group's; a rank that must pick its card before it joins the group
+    (``init_process_group(..., device_id=)``) passes both."""
+    import torch
+    import torch.distributed as dist
+    backend = backend or dist.get_backend()
+    if backend != "nccl":
+        return torch.device("cpu")
+    return torch.device("cuda", dist.get_rank() if rank is None else rank)
+
+
 def make_test_mesh(shape=(2, 4), axes=("data", "model")):
     """A ``DeviceMesh`` of ``shape`` named ``axes`` over the first ranks
     of the initialised process group, row-major, as ``jax.make_mesh``
-    takes the first devices (gloo: CPU tensors; NCCL: each rank's card).
-    Every rank of the group calls it."""
+    takes the first devices, on each rank's ``rank_device`` (gloo: CPU
+    tensors; NCCL: the rank's card, made the current device). Every rank
+    of the group calls it."""
     import math
 
     import torch
-    import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
-    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    dev = rank_device()
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
     ranks = torch.arange(math.prod(shape)).reshape(tuple(shape))
-    return DeviceMesh(device_type, ranks, mesh_dim_names=tuple(axes))
+    return DeviceMesh(dev.type, ranks, mesh_dim_names=tuple(axes))

@@ -655,7 +655,8 @@ def build_svfusion_bundle(shape, mesh) -> StepBundle:
 # Real inputs
 # ---------------------------------------------------------------------------
 
-def materialize(bundle: StepBundle, gen: torch.Generator, device="cuda"):
+def materialize(bundle: StepBundle, gen: torch.Generator, device="cuda",
+                shard=None):
     """Real inputs for ``bundle.fn`` on ``device``, drawn from ``gen``
     (a generator on ``device``): the params from the templates in the
     cell's dtype, a zero optimizer state and a zero cache, tokens and
@@ -664,11 +665,17 @@ def materialize(bundle: StepBundle, gen: torch.Generator, device="cuda"):
     (``convert.shard_rows`` cuts a rank's shard; on a mesh of one device
     it is the shard): vectors normal, each shard's neighbour lists
     uniform over its own rows (local ids), every row alive, an empty hot
-    cache, queries normal and the seed 0."""
+    cache, queries normal and the seed 0. With ``shard`` (a search cell
+    only) it gets that shard's rows alone, drawn from a generator seeded
+    from (``gen``'s seed, ``shard``), and the queries from ``gen``: the
+    same on every rank whose ``gen`` has the same seed."""
     dev = torch.device(device)
     args = bundle.abstract_args
     if bundle.kind == "search":
-        return _materialize_search(args, bundle.n_shards, gen, dev)
+        return _materialize_search(args, bundle.n_shards, gen, dev, shard)
+    if shard is not None:
+        raise ValueError(f"{bundle.kind} bundle: only a search cell's "
+                         "inputs are drawn a shard at a time")
     cfg = bundle.cfg
 
     def zeros(a):
@@ -707,15 +714,24 @@ def _cache_len(cfg, cache_abs):
     return cache_abs[key].shape[2]
 
 
-def _materialize_search(args, n_shards, gen, dev):
+def _materialize_search(args, n_shards, gen, dev, shard=None):
     idx_abs, q_abs, _ = args
     n, dim = idx_abs["vectors"].shape
     cache_slots = idx_abs["cache_vectors"].shape[0]
     degree = idx_abs["nbrs"].shape[1]
+    local = n // n_shards                 # a shard's rows
     i32 = torch.int32
+    q = None
+    if shard is not None:
+        from repro_torch.core.distributed import shard_generator
+        if not 0 <= shard < n_shards:
+            raise ValueError(f"shard {shard} of {n_shards}")
+        n, cache_slots = local, cache_slots // n_shards
+        q = torch.randn(q_abs.shape, generator=gen, device=dev)
+        gen = shard_generator(gen.initial_seed(), shard, dev)
     idx = {
         "vectors": torch.randn(n, dim, generator=gen, device=dev),
-        "nbrs": torch.randint(0, n // n_shards, (n, degree), generator=gen,
+        "nbrs": torch.randint(0, local, (n, degree), generator=gen,
                               device=dev, dtype=i32),
         "alive": torch.ones(n, dtype=torch.bool, device=dev),
         "e_in": torch.zeros(n, dtype=i32, device=dev),
@@ -724,5 +740,6 @@ def _materialize_search(args, n_shards, gen, dev):
         "h2d": torch.full((n,), -1, dtype=i32, device=dev),
         "f_recent": torch.zeros(n, device=dev),
     }
-    q = torch.randn(q_abs.shape, generator=gen, device=dev)
+    if q is None:
+        q = torch.randn(q_abs.shape, generator=gen, device=dev)
     return idx, q, torch.zeros((), dtype=torch.int64, device=dev)
