@@ -20,6 +20,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core import trace
 from repro_torch.core.tiers import DiskTier, TieredBackend, TieredStore
 from repro_torch.core.topk import argsort, largest_k, smallest_k
 from repro_torch.core.types import (GraphState, IndexState, init_cache_state,
@@ -111,10 +112,12 @@ def _add_reverse_edges(nbrs_np: np.ndarray, n: int, rng: np.random.Generator):
 
 
 def compute_e_in(nbrs, n_max):
-    flat = nbrs.reshape(-1)
-    valid = flat >= 0
-    return torch.zeros((n_max,), dtype=torch.int32, device=nbrs.device) \
-        .index_add_(0, flat.clamp(0, n_max - 1), valid.to(torch.int32))
+    with trace.span("update.e_in"):
+        flat = nbrs.reshape(-1)
+        valid = flat >= 0
+        return torch.zeros((n_max,), dtype=torch.int32,
+                           device=nbrs.device) \
+            .index_add_(0, flat.clamp(0, n_max - 1), valid.to(torch.int32))
 
 
 def _as_device_vectors(vectors, device):

@@ -34,7 +34,7 @@ import torch
 
 from repro_torch.core import cache as Cache
 from repro_torch.core import calibrate
-from repro_torch.core import mvcc, quant, slo, update
+from repro_torch.core import mvcc, quant, slo, trace, update
 from repro_torch.core import wal as walmod
 from repro_torch.core.build import (_exact_knn, build_index,
                                     build_tiered_backend, compute_e_in)
@@ -211,11 +211,13 @@ class _SearchFuture:
     dispatcher skip-and-fail it once unmeetable."""
 
     __slots__ = ("queries", "submitted", "_event", "ids", "dists", "error",
-                 "latency", "tenant", "deadline", "filter", "fkey")
+                 "latency", "tenant", "deadline", "filter", "fkey", "tid")
 
     def __init__(self, queries, tenant=None, deadline=None, filter=None):
         self.queries = queries
         self.submitted = time.perf_counter()
+        # the submitting thread, for its coalesce.queue span (traced only)
+        self.tid = threading.get_native_id() if trace.TRACER.on else 0
         self._event = threading.Event()
         self.ids = None
         self.dists = None
@@ -322,6 +324,12 @@ class CoalescingScheduler:
             level = self.tier.level
             ok = True
             t0 = time.perf_counter()
+            if trace.TRACER.on:
+                for f in batch:
+                    if f.tid:
+                        trace.record("coalesce.queue",
+                                     round(f.submitted * 1e9),
+                                     round(t0 * 1e9), f.tid)
             try:
                 kw = {"degrade": level} if level > 0 else {}
                 if batch[0].filter is not None:
@@ -508,6 +516,8 @@ class SVFusionEngine:
                 restore_after=cfg.slo_restore_after,
                 tenant_rate_limits=cfg.slo_tenant_rate_limits))
             if cfg.coalesce else None)
+        # host seconds of each search dispatch, insert and delete call:
+        # the durations of the engine.* spans, filled on and off
         self.latencies: dict[str, list] = {"search": [], "insert": [],
                                            "delete": []}
 
@@ -646,28 +656,35 @@ class SVFusionEngine:
             self._backend.wal = self._wal
 
     # ------------------------------------------------------------------
+    @property
+    def tracer(self) -> trace.Tracer:
+        """The process-wide tracer (``core/trace.py``) the engine's spans
+        go to; off until enabled."""
+        return trace.TRACER
+
     def _next_key(self) -> torch.Generator:
         """A fresh generator on the engine's device, seeded from the
         engine's own (the counterpart of splitting a PRNG key)."""
-        with self._cache_lock:
+        with trace.held(self._cache_lock, "cache_lock"), \
+                trace.span("engine.sync"):
             seed = int(torch.randint(0, 2 ** 62, (), generator=self._key,
                                      device=self.device))
         return torch.Generator(device=self.device).manual_seed(seed)
 
     def _read_state(self) -> IndexState:
         if self.cfg.sync:
-            with self._state_lock:
+            with trace.held(self._state_lock, "state_lock"):
                 return self._state
         # no-sync ablation: stale snapshot, periodically refreshed
         self._ops_since_refresh += 1
         if self._ops_since_refresh >= self.cfg.stale_refresh:
             self._ops_since_refresh = 0
-            with self._state_lock:
+            with trace.held(self._state_lock, "state_lock"):
                 self._stale_state = self._state
         return self._stale_state
 
     def _publish(self, state: IndexState):
-        with self._state_lock:
+        with trace.held(self._state_lock, "state_lock"):
             self._state = state
 
     # ------------------------------------------------------------------
@@ -722,36 +739,40 @@ class SVFusionEngine:
         if filter is not None:
             raise ValueError("filtered search requires the three-tier "
                              "mode with cfg.attributes set")
-        t0 = time.perf_counter()
-        sp, _ = self._degraded_knobs(degrade)
-        st = self._read_state()
-        q = torch.as_tensor(np.asarray(queries, np.float32),
-                            device=self.device)
-        B = q.shape[0]
-        Bp = 1 << max(0, (B - 1)).bit_length()
-        if Bp != B:
-            q = torch.cat([q, q.new_zeros((Bp - B, q.shape[1]))])
-        res = search_batch(st, q, self._next_key(), sp)
-        syncs = res.host_syncs + 1                     # the key's seed
-        if Bp != B:
-            lane = (torch.arange(Bp, device=self.device) < B)[:, None]
-            res = res._replace(ids=res.ids[:B], dists=res.dists[:B],
-                               acc_ids=torch.where(lane, res.acc_ids, -1),
-                               acc_hit=res.acc_hit & lane)
-        ids = res.ids.cpu().numpy()
-        if update_cache:
-            # placement is applied to the *current* state (the cache tier
-            # is shared; graph fields pass through untouched)
-            with self._state_lock:
-                cur = self._state
-                new = Cache.apply_wavp(cur, res.acc_ids, res.acc_hit,
-                                       self.cfg.search,
-                                       now=self._update_batches)
-                self._state = cur._replace(cache=new.cache, stats=new.stats)
-        with self._cache_lock:
-            self.host_syncs += syncs
-        self.latencies["search"].append(time.perf_counter() - t0)
-        return ids, res.dists.cpu().numpy()
+        with trace.span("engine.search", into=self.latencies["search"]):
+            sp, _ = self._degraded_knobs(degrade)
+            st = self._read_state()
+            q = torch.as_tensor(np.asarray(queries, np.float32),
+                                device=self.device)
+            B = q.shape[0]
+            Bp = 1 << max(0, (B - 1)).bit_length()
+            if Bp != B:
+                q = torch.cat([q, q.new_zeros((Bp - B, q.shape[1]))])
+            res = search_batch(st, q, self._next_key(), sp)
+            syncs = res.host_syncs + 1                 # the key's seed
+            if Bp != B:
+                lane = (torch.arange(Bp, device=self.device) < B)[:, None]
+                res = res._replace(ids=res.ids[:B], dists=res.dists[:B],
+                                   acc_ids=torch.where(lane, res.acc_ids,
+                                                       -1),
+                                   acc_hit=res.acc_hit & lane)
+            with trace.span("engine.sync"):
+                ids = res.ids.cpu().numpy()
+            if update_cache:
+                # placement is applied to the *current* state (the cache
+                # tier is shared; graph fields pass through untouched)
+                with trace.held(self._state_lock, "state_lock"):
+                    cur = self._state
+                    new = Cache.apply_wavp(cur, res.acc_ids, res.acc_hit,
+                                           self.cfg.search,
+                                           now=self._update_batches)
+                    self._state = cur._replace(cache=new.cache,
+                                               stats=new.stats)
+            with trace.held(self._cache_lock, "cache_lock"):
+                self.host_syncs += syncs
+        with trace.span("engine.sync"):
+            dists = res.dists.cpu().numpy()
+        return ids, dists
 
     def _search_tiered(self, queries, update_cache=True, degrade=0,
                        filter=None):
@@ -759,60 +780,62 @@ class SVFusionEngine:
         post-batch host placement. Batches pad to a power of two and the
         search seed comes from the engine's numpy stream, as in the
         reference, so the same seed draws the same entry points."""
-        t0 = time.perf_counter()
-        with self._cache_lock:
-            seed = int(self._rng.integers(0, 2 ** 31 - 1))
-        backend = self._backend
-        sp, rerank_depth = self._degraded_knobs(degrade)
-        queries = np.asarray(queries, np.float32)
-        B = queries.shape[0]
-        Bp = 1 << max(0, (B - 1)).bit_length()
-        if Bp != B:
-            queries = np.concatenate(
-                [queries, np.zeros((Bp - B, queries.shape[1]), np.float32)])
-        f_lam = self._placement.scores(backend.e_in)   # one O(N) pass/batch
-        res = search_tiered(
-            backend, self._placement, queries, seed, sp, f_lam=f_lam,
-            prefetch_budget=(self.cfg.prefetch_budget if self.cfg.prefetch
-                             else 0),
-            speculate=self.cfg.speculate, spec_width=self.cfg.spec_width,
-            spec_rank=self._spec_rank,
-            pq=(backend.pq if self.cfg.pq_enabled else None),
-            rerank_depth=rerank_depth,
-            topo=(backend.topo if self.cfg.pq_enabled else None),
-            fused_rounds=self.cfg.fused_rounds, filter=filter,
-            filter_fallback_selectivity=self.cfg.filter_fallback_selectivity,
-            device=self.device)
-        if Bp != B:   # drop pad lanes from results AND placement logs
-            res = res._replace(ids=res.ids[:B], dists=res.dists[:B],
-                               acc_ids=res.acc_ids[:B],
-                               acc_hit=res.acc_hit[:B])
-        with self._cache_lock:    # concurrent search streams share these
-            self._search_rounds += res.iters
-            self._search_dispatches += res.dispatches
-            self._search_batches += 1
-            self._spec_hits += res.spec_hits
-            self._spec_misses += res.spec_misses
-            self._topo_hits += res.topo_hits
-            self._topo_misses += res.topo_misses
-            if res.filter_path != "none":
-                self._filtered_searches += 1
-                if res.filter_path == "fallback":
-                    self._filter_fallbacks += 1
-                self._filter_last_selectivity = res.filter_selectivity
-                self._filter_last_path = res.filter_path
-        if update_cache:
+        with trace.span("engine.search", into=self.latencies["search"]):
             with self._cache_lock:
-                Cache.apply_wavp_host(
-                    self._placement, res.acc_ids, res.acc_hit,
-                    self.cfg.search, alive=backend.alive,
-                    e_in=backend.e_in,
-                    fetch_vectors=lambda i: backend.store.fetch(
-                        i, f_lam, count=False)[0],
-                    now=self._update_batches,
-                    cascade_promote=self.cfg.wavp_cascade_promote)
-        self.latencies["search"].append(time.perf_counter() - t0)
-        return res.ids, res.dists
+                seed = int(self._rng.integers(0, 2 ** 31 - 1))
+            backend = self._backend
+            sp, rerank_depth = self._degraded_knobs(degrade)
+            queries = np.asarray(queries, np.float32)
+            B = queries.shape[0]
+            Bp = 1 << max(0, (B - 1)).bit_length()
+            if Bp != B:
+                queries = np.concatenate(
+                    [queries,
+                     np.zeros((Bp - B, queries.shape[1]), np.float32)])
+            # one O(N) pass a batch
+            f_lam = self._placement.scores(backend.e_in)
+            res = search_tiered(
+                backend, self._placement, queries, seed, sp, f_lam=f_lam,
+                prefetch_budget=(self.cfg.prefetch_budget
+                                 if self.cfg.prefetch else 0),
+                speculate=self.cfg.speculate, spec_width=self.cfg.spec_width,
+                spec_rank=self._spec_rank,
+                pq=(backend.pq if self.cfg.pq_enabled else None),
+                rerank_depth=rerank_depth,
+                topo=(backend.topo if self.cfg.pq_enabled else None),
+                fused_rounds=self.cfg.fused_rounds, filter=filter,
+                filter_fallback_selectivity=(
+                    self.cfg.filter_fallback_selectivity),
+                device=self.device)
+            if Bp != B:   # drop pad lanes from results AND placement logs
+                res = res._replace(ids=res.ids[:B], dists=res.dists[:B],
+                                   acc_ids=res.acc_ids[:B],
+                                   acc_hit=res.acc_hit[:B])
+            with self._cache_lock:    # concurrent search streams share these
+                self._search_rounds += res.iters
+                self._search_dispatches += res.dispatches
+                self._search_batches += 1
+                self._spec_hits += res.spec_hits
+                self._spec_misses += res.spec_misses
+                self._topo_hits += res.topo_hits
+                self._topo_misses += res.topo_misses
+                if res.filter_path != "none":
+                    self._filtered_searches += 1
+                    if res.filter_path == "fallback":
+                        self._filter_fallbacks += 1
+                    self._filter_last_selectivity = res.filter_selectivity
+                    self._filter_last_path = res.filter_path
+            if update_cache:
+                with self._cache_lock:
+                    Cache.apply_wavp_host(
+                        self._placement, res.acc_ids, res.acc_hit,
+                        self.cfg.search, alive=backend.alive,
+                        e_in=backend.e_in,
+                        fetch_vectors=lambda i: backend.store.fetch(
+                            i, f_lam, count=False)[0],
+                        now=self._update_batches,
+                        cascade_promote=self.cfg.wavp_cascade_promote)
+            return res.ids, res.dists
 
     # ------------------------------------------------------------------
     def insert(self, vectors, chunk=512, attributes=None):
@@ -823,50 +846,50 @@ class SVFusionEngine:
         ``filters.AttributeSchema.coerce``) tags the rows for filtered
         search; it needs the three-tier mode with ``cfg.attributes``.
         Returns the new ids."""
-        t0 = time.perf_counter()
-        self._check_writable()
-        vectors = np.asarray(vectors, np.float32)
-        attr_cols = None
-        if attributes is not None:
-            if self._backend is None or self._backend.attrs is None:
-                raise ValueError("insert(attributes=...) requires the "
-                                 "three-tier mode with cfg.attributes set")
-            attr_cols = self._backend.attrs.schema.coerce(attributes,
-                                                          len(vectors))
-        out = []
-        with self._update_lock:
-            for s in range(0, len(vectors), chunk):
-                part_np = vectors[s:s + chunk]
-                if self._backend is not None:
-                    part_attrs = None
-                    if attr_cols is not None:
-                        part_attrs = (attr_cols[0][s:s + chunk],
-                                      attr_cols[1][s:s + chunk])
-                    out.append(self._insert_tiered(part_np, part_attrs))
-                    continue
-                part = torch.as_tensor(part_np, device=self.device)
-                st = self._state
-                rev = None
-                if int(st.graph.alive.sum()) < 2 * self.cfg.degree:
-                    st2, ids = self._bootstrap_insert(st, part)
-                else:
-                    n = max(int(st.graph.n), 1)
-                    entries = torch.randint(
-                        0, n, (len(part_np), self.cfg.search.pool),
-                        generator=self._next_key(), dtype=torch.int32,
-                        device=self.device)
-                    st2, ids, rev = update.insert_batch(st, part, entries,
-                                                        self.cfg.search)
-                if rev is not None and self._snapshot_n is not None:
-                    self._rev_logs.append(rev)
-                self._publish(st2)
-                self._update_batches += 1
-                self._batches_since_repair += 1
-                out.append(ids.cpu().numpy())
-        self._maybe_maintain()
-        self._maybe_checkpoint()
-        self.latencies["insert"].append(time.perf_counter() - t0)
-        return np.concatenate(out) if out else np.zeros((0,), np.int32)
+        with trace.span("engine.insert", into=self.latencies["insert"]):
+            self._check_writable()
+            vectors = np.asarray(vectors, np.float32)
+            attr_cols = None
+            if attributes is not None:
+                if self._backend is None or self._backend.attrs is None:
+                    raise ValueError("insert(attributes=...) requires the "
+                                     "three-tier mode with cfg.attributes "
+                                     "set")
+                attr_cols = self._backend.attrs.schema.coerce(attributes,
+                                                              len(vectors))
+            out = []
+            with trace.held(self._update_lock, "update_lock"):
+                for s in range(0, len(vectors), chunk):
+                    part_np = vectors[s:s + chunk]
+                    if self._backend is not None:
+                        part_attrs = None
+                        if attr_cols is not None:
+                            part_attrs = (attr_cols[0][s:s + chunk],
+                                          attr_cols[1][s:s + chunk])
+                        out.append(self._insert_tiered(part_np, part_attrs))
+                        continue
+                    part = torch.as_tensor(part_np, device=self.device)
+                    st = self._state
+                    rev = None
+                    if int(st.graph.alive.sum()) < 2 * self.cfg.degree:
+                        st2, ids = self._bootstrap_insert(st, part)
+                    else:
+                        n = max(int(st.graph.n), 1)
+                        entries = torch.randint(
+                            0, n, (len(part_np), self.cfg.search.pool),
+                            generator=self._next_key(), dtype=torch.int32,
+                            device=self.device)
+                        st2, ids, rev = update.insert_batch(st, part, entries,
+                                                            self.cfg.search)
+                    if rev is not None and self._snapshot_n is not None:
+                        self._rev_logs.append(rev)
+                    self._publish(st2)
+                    self._update_batches += 1
+                    self._batches_since_repair += 1
+                    out.append(ids.cpu().numpy())
+            self._maybe_maintain()
+            self._maybe_checkpoint()
+            return np.concatenate(out) if out else np.zeros((0,), np.int32)
 
     def _insert_tiered(self, part_np, part_attrs=None):
         """One three-tier insert chunk (caller holds the update lock). A
@@ -927,27 +950,27 @@ class SVFusionEngine:
     def delete(self, ids):
         """Logical deletion (paper §5.2.1). Out-of-range and already
         deleted ids are ignored."""
-        t0 = time.perf_counter()
-        self._check_writable()
-        with self._update_lock:
-            if self._backend is not None:
-                # bounds/alive filtering and log-before-write live in
-                # update.delete_tiered
-                try:
-                    update.delete_tiered(self._backend, ids)
-                except walmod.WALWriteError as e:
-                    self._degrade(str(e))
-            else:
-                st2 = update.delete_batch(
-                    self._state, torch.as_tensor(np.asarray(ids, np.int32),
-                                                 device=self.device))
-                self._publish(st2)
-            self._update_batches += 1
-            self._batches_since_repair += 1
-            self._batches_since_snapshot += 1
-        self._maybe_maintain()
-        self._maybe_checkpoint()
-        self.latencies["delete"].append(time.perf_counter() - t0)
+        with trace.span("engine.delete", into=self.latencies["delete"]):
+            self._check_writable()
+            with trace.held(self._update_lock, "update_lock"):
+                if self._backend is not None:
+                    # bounds/alive filtering and log-before-write live in
+                    # update.delete_tiered
+                    try:
+                        update.delete_tiered(self._backend, ids)
+                    except walmod.WALWriteError as e:
+                        self._degrade(str(e))
+                else:
+                    st2 = update.delete_batch(
+                        self._state,
+                        torch.as_tensor(np.asarray(ids, np.int32),
+                                        device=self.device))
+                    self._publish(st2)
+                self._update_batches += 1
+                self._batches_since_repair += 1
+                self._batches_since_snapshot += 1
+            self._maybe_maintain()
+            self._maybe_checkpoint()
 
     # ------------------------------------------------------------------
     # durability (core/wal.py)
@@ -999,11 +1022,11 @@ class SVFusionEngine:
         the deleted fraction is read from a state snapshot taken under
         the lock. Three-tier mode has no localized-repair stage: the
         streaming consolidation covers it."""
-        with self._update_lock:
+        with trace.held(self._update_lock, "update_lock"):
             if self._batches_since_repair >= self.cfg.repair_every:
                 self._batches_since_repair = 0
                 if self._backend is None:
-                    with self._state_lock:
+                    with trace.held(self._state_lock, "state_lock"):
                         st = self._state
                     st, _ = update.repair_affected(
                         st, max_repair=self.cfg.repair_budget,
@@ -1011,12 +1034,12 @@ class SVFusionEngine:
                     # repair only touches the graph: publish that field
                     # alone so cache/stats updates from searches that ran
                     # during the scan are not rolled back
-                    with self._state_lock:
+                    with trace.held(self._state_lock, "state_lock"):
                         self._state = self._state._replace(graph=st.graph)
         if self._backend is not None:
             frac = self._backend.deleted_fraction()
         else:
-            with self._state_lock:
+            with trace.held(self._state_lock, "state_lock"):
                 graph = self._state.graph
             frac = float(update.deleted_fraction(graph))
         if frac >= self.cfg.consolidate_threshold:
@@ -1029,7 +1052,7 @@ class SVFusionEngine:
         the bounded-version policy defers it."""
         if self._backend is not None:
             return self._consolidate_tiered_async(wait)
-        with self._state_lock:
+        with trace.held(self._state_lock, "state_lock"):
             if self._snapshot_n is not None:
                 return None  # a version is already in flight: defer
             if self._active_versions >= self.cfg.max_versions:
@@ -1041,15 +1064,17 @@ class SVFusionEngine:
             self._active_versions += 1
 
         def work():
-            consolidated = update.consolidate(snapshot)
-            with self._update_lock, self._state_lock:
-                log = mvcc.concat_rev_logs(self._rev_logs, self.device)
-                self._state = mvcc.merge_consolidated(
-                    consolidated, self._state, snap_n, log)
-                self._snapshot_n = None
-                self._rev_logs = []
-                self._active_versions -= 1
-                self._consolidations += 1
+            with trace.span("engine.consolidate"):
+                consolidated = update.consolidate(snapshot)
+                with trace.held(self._update_lock, "update_lock"), \
+                        trace.held(self._state_lock, "state_lock"):
+                    log = mvcc.concat_rev_logs(self._rev_logs, self.device)
+                    self._state = mvcc.merge_consolidated(
+                        consolidated, self._state, snap_n, log)
+                    self._snapshot_n = None
+                    self._rev_logs = []
+                    self._active_versions -= 1
+                    self._consolidations += 1
 
         return self._start_background(work, wait)
 

@@ -38,6 +38,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core import trace
 from repro_torch.core.cache import payload_rows
 from repro_torch.core.quant import adc_lut
 from repro_torch.core.topk import argsort, smallest_k
@@ -196,8 +197,9 @@ def _run_fused_rounds(state, r_stop, beam, id_bound, row_fn, dist_fn):
     while r < r_stop and not stall:
         nb, res_ok = row_fn(curr)                     # [B, beam, R]
         live = curr >= 0
-        work, stall = torch.stack(
-            [live.any(), (live & ~res_ok).any()]).tolist()
+        with trace.span("engine.sync"):
+            work, stall = torch.stack(
+                [live.any(), (live & ~res_ok).any()]).tolist()
         syncs += 1
         if not work or stall:
             break
@@ -287,7 +289,8 @@ def search_batch(state: IndexState, queries, key: torch.Generator,
     generator on the state's device; paper §4.2: no seed maintenance
     under updates). queries [B, D]."""
     B = queries.shape[0]
-    n = max(int(state.graph.n), 1)
+    with trace.span("engine.sync"):
+        n = max(int(state.graph.n), 1)
     entries = torch.randint(0, n, (B, sp.pool), generator=key,
                             dtype=torch.int32, device=queries.device)
     res = frontier_search(state, queries, entries, sp)
