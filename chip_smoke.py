@@ -22,7 +22,7 @@ with four cards, and exits non-zero on fewer.
 
 1. device        card name and power limit (nvidia-smi), torch and CUDA.
 2. build         nvcc builds every kernel (l2_gather, pq_adc, row_gather,
-                 topk_merge) from ``src/``, all at once.
+                 topk_merge, e_in_count) from ``src/``, all at once.
 3. kernels       each kernel against its plain PyTorch version on the
                  card at the main paths' shapes and at shapes that reach
                  every path of the kernel, with times, the bound, the
@@ -31,7 +31,10 @@ with four cards, and exits non-zero on fewer.
                  ([1,024 x Mp] ids, Mp = 32,768 and 131,072) with the
                  call's peak device memory; l2_gather also at the RAG
                  index's retrieval shape (table [2^18, 576], ids [1,024 x
-                 512]), which takes its ROWS_VEC path.
+                 512]), which takes its ROWS_VEC path; e_in_count at the
+                 benchmark cells' neighbour table [2^21, 32] with 262,144
+                 and 700,000 rows of ids, and at an odd misaligned shape,
+                 exact, beside the plain version's hot-bin time.
 4. parity        on an integer-valued index, the device-mode executor and
                  ``search_tiered`` (PQ lane, topology cache, speculation)
                  on the CPU (plain versions) and on the card (kernels)
@@ -61,9 +64,9 @@ with four cards, and exits non-zero on fewer.
                  the time and memory of one build chunk, and a sliding-
                  window write stream: 4 steps of 10,240 inserts and
                  10,240 deletes of the oldest ids, a search per step
-                 (recall, read-after-write, no deleted id returned), then
-                 a background consolidation with one more step in its
-                 window.
+                 (recall, read-after-write, no deleted id returned; the
+                 e_in_count launches of its inserts), then a background
+                 consolidation with one more step in its window.
 8. tiered        three-tier mode: a 1M x 96 engine on a disk tier in a
                  temporary directory, PQ lane (m=16, 8 bits), topology
                  cache at full residency, speculation and prefetch on,
@@ -142,7 +145,7 @@ with four cards, and exits non-zero on fewer.
                  decode with cuBLAS's reduced-precision bf16 reduction
                  allowed and not, and serve with it on, off, off, on,
                  all on the same inputs (ROADMAP C.1).
-16. train        the training path, which launches none of the four
+16. train        the training path, which launches none of the five
                  kernels (checked). Card against CPU in fp32 on the
                  smoke configs of all ten architectures (granite-moe at
                  both dispatches, hymba past its window): the loss within
@@ -584,6 +587,49 @@ def phase_kernel_topk_merge(gen, dev, B=1024):
     return rows[(64, 512)], K_.launches
 
 
+def phase_kernel_e_in(gen, dev, cap=1 << 21, R=32, live=(262_144, 700_000),
+                      odd=100_003):
+    """e_in_count against its plain version (the hot bin), exact, at the
+    benchmark cells' table [2^21, 32] with 262,144 (the built index) and
+    700,000 (after the writes) rows of ids below the live count, 20% of
+    their slots -1 and every row after them -1; and at an odd shape,
+    [100,003, 7] (N*R not a multiple of 4) viewed 4 bytes past a 16-byte
+    boundary. Timed beside its bound (the table read and the output
+    zeroed, over HBM bandwidth) and the plain version. Returns the
+    262,144-row row."""
+    import torch
+    from repro_torch.kernels.e_in_count import kernel as K_
+    from repro_torch.kernels.e_in_count.ref import e_in_count_ref
+    rows = {}
+    for label, n, width, n_live, offset in (
+            ("built", cap, R, live[0], 0), ("grown", cap, R, live[1], 0),
+            ("odd", odd, 7, odd, 1)):
+        flat = torch.full((n * width + offset,), -1, dtype=torch.int32,
+                          device=dev)
+        table = flat[offset:].view(n, width)
+        ids = torch.randint(0, n_live, (n_live, width), generator=gen,
+                            device=dev, dtype=torch.int32)
+        ids[torch.rand(n_live, width, generator=gen, device=dev) < 0.2] = -1
+        table[:n_live] = ids
+        out = K_.e_in_count(table, n)
+        ref = e_in_count_ref(table, n)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"e_in_count {label} differs from its "
+                                 "plain version")
+        nbytes = table.numel() * 4 + n * 4
+        rows[label] = dict(
+            shape=[n, width], n_max=n, live_rows=n_live,
+            slots_with_ids=int((table >= 0).sum()),
+            misaligned=table.data_ptr() % 16 != 0, max_abs_err=0.0,
+            exact=True, ms=cuda_ms(lambda: K_.e_in_count(table, n), 30),
+            plain_ms=cuda_ms(lambda: e_in_count_ref(table, n), 10),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+        emit("kernel", kernel="e_in_count", case=label, **rows[label])
+        del flat, table, ids, out, ref
+    return rows["built"]
+
+
 def int_vectors(gen, n, d, dev):
     import torch
     return torch.randint(-8, 9, (n, d), generator=gen, device=dev).float()
@@ -857,7 +903,7 @@ def phase_write_parity_device(gen, dev, sp, n=20_000, d=96, b=512):
         steps.append(("window", st.graph))
         cons = update.consolidate(snap)
         steps.append(("consolidate", cons.graph))
-        merged = mvcc.merge_consolidated(cons, st, snap_n, rev2)
+        merged = mvcc.merge_consolidated(cons, st, snap_n, [rev2])
         steps.append(("merge", merged.graph))
         if where != "cpu":
             torch.cuda.synchronize()
@@ -1387,7 +1433,8 @@ def device_profile(fn, phase, top=15, **extra):
               for k, c, t in rows[:top]],
          ported=[{"kernel": name, "calls": c, "device_ms": t,
                   "us_per_call": t / c * 1e3}
-                 for name in ("l2_gather", "pq_adc", "row_gather")
+                 for name in ("l2_gather", "pq_adc", "row_gather",
+                              "e_in_count")
                  for k, c, t in rows if f"::{name}_" in k])
 
 
@@ -1448,23 +1495,28 @@ def phase_write_stream(eng, draw, dev, steps=4, rows=10_240, q_rows=1024,
     was dead at the snapshot (the merge keeps edges to vertices deleted in
     its window, as the reference's does; searches skip them), e_in equal
     to its recomputation; then a second consolidation with no window,
-    after which no edge reaches any dead vertex."""
+    after which no edge reaches any dead vertex. Returns the e_in_count
+    launches of the steps' inserts."""
     import torch
     from repro_torch.core import mvcc, update
     from repro_torch.core.build import compute_e_in
     from repro_torch.core.search import brute_force_topk, recall_at_k
+    from repro_torch.kernels.e_in_count import kernel as EK
     from repro_torch.kernels.l2_gather import kernel as K
     deleted, oldest = [], 0
+    e_in_launches = 0
 
     def step(i, phase="write_step"):
-        nonlocal oldest
+        nonlocal oldest, e_in_launches
         new = draw(rows).cpu().numpy()
-        l0 = K.launches
+        l0, e0 = K.launches, EK.launches
         t = time.perf_counter()
         ids = eng.insert(new)
         torch.cuda.synchronize()
         ins_s = time.perf_counter() - t
         launched = K.launches - l0
+        e_launched = EK.launches - e0
+        e_in_launches += e_launched
         old = np.arange(oldest, oldest + rows)
         oldest += rows
         t = time.perf_counter()
@@ -1482,13 +1534,15 @@ def phase_write_stream(eng, draw, dev, steps=4, rows=10_240, q_rows=1024,
         leaked = int(np.isin(found, dead).sum() + np.isin(own, dead).sum())
         emit(phase, mode="device", step=i, inserted=rows, deleted=rows,
              insert_s=ins_s, inserts_per_s=rows / ins_s, delete_s=del_s,
-             l2_gather_launches_by_inserts=launched, recall_at_10=rec,
+             l2_gather_launches_by_inserts=launched,
+             e_in_count_launches_by_inserts=e_launched, recall_at_10=rec,
              read_after_write=raw, deleted_ids_returned=leaked,
              n=int(eng.state.graph.n), alive=int(eng.state.graph.alive.sum()))
-        if launched == 0 or raw < min_raw or leaked or \
+        if launched == 0 or e_launched == 0 or raw < min_raw or leaked or \
                 not np.isfinite(dists).all():
             raise AssertionError(f"write step {i}: l2_gather launches "
-                                 f"{launched}, read-after-write {raw}, "
+                                 f"{launched}, e_in_count launches "
+                                 f"{e_launched}, read-after-write {raw}, "
                                  f"deleted ids returned {leaked}")
 
     for i in range(steps):
@@ -1539,6 +1593,7 @@ def phase_write_stream(eng, draw, dev, steps=4, rows=10_240, q_rows=1024,
     if to_snap_dead or after or not (e_in_ok and e_in_ok2):
         raise AssertionError("device consolidation left edges to dead "
                              "vertices or a stale e_in")
+    return e_in_launches
 
 
 def _tiered_truth(vecs, alive, queries, dev, k=10):
@@ -1720,7 +1775,9 @@ def phase_main(gen, dev, seed, n=262_144, d=96, sizes=(1024,) * 8
         phase_profile(eng, queries[:3])
         phase_knn_chunk(vecs)
         if write:
-            phase_write_stream(eng, draw, dev)
+            e_in_launches = phase_write_stream(eng, draw, dev)
+            if keep is not None:
+                keep["e_in_count_launches"] = e_in_launches
     finally:
         eng.close()
     return launched
@@ -3108,7 +3165,7 @@ def phase_families(dev, seed):
 # ---------------------------------------------------------------------------
 
 BF16_FLOPS = 989e12           # H100 SXM dense bf16 (tensor cores, 700 W)
-PORTED = ("l2_gather", "pq_adc", "row_gather", "topk_merge")
+PORTED = ("l2_gather", "pq_adc", "row_gather", "topk_merge", "e_in_count")
 
 
 def ported_launches():
@@ -4639,6 +4696,7 @@ def main():
         pq = pq_rows["round"]
         rows = phase_kernel_rows(gen, dev)
         topk, topk_launches = phase_kernel_topk_merge(gen, dev)
+        e_in = phase_kernel_e_in(gen, dev)
     if "parity" in only:
         phase_parity(gen, dev, sp)
         phase_tiered_parity(gen, dev, sp)
@@ -4709,7 +4767,11 @@ def main():
             dict(name="topk_merge", replaces="src/repro/kernels/topk_merge/"
                  "kernel.py:73", launches=topk_launches, row=topk,
                  path="none: no caller in the engine, as in the reference; "
-                 "launches are its kernel phase's")]
+                 "launches are its kernel phase's"),
+            dict(name="e_in_count", replaces="none: build.compute_e_in, a "
+                 "scatter-add in the reference (src/repro/core/build.py:95)",
+                 launches=main_kept["e_in_count_launches"], row=e_in,
+                 path="the main phase's write-stream inserts")]
         print(json.dumps({"kernels": [{
             "name": k["name"], "route": "cuda",
             "source": src.format(k["name"]), "replaces": k["replaces"],

@@ -25,7 +25,7 @@ from repro_torch.core.tiers import DiskTier, TieredBackend, TieredStore
 from repro_torch.core.topk import argsort, largest_k, smallest_k
 from repro_torch.core.types import (GraphState, IndexState, init_cache_state,
                                     init_graph_state, init_stats)
-from repro_torch.kernels.ops import gather_l2
+from repro_torch.kernels.ops import gather_l2, in_degree
 
 MERGE_CHUNK = 2048     # rows merged at once: rank_based_reorder's [rows,
 #                        C, R, C] comparison is 268 MB at C=64, R=32
@@ -113,11 +113,7 @@ def _add_reverse_edges(nbrs_np: np.ndarray, n: int, rng: np.random.Generator):
 
 def compute_e_in(nbrs, n_max):
     with trace.span("update.e_in"):
-        flat = nbrs.reshape(-1)
-        valid = flat >= 0
-        return torch.zeros((n_max,), dtype=torch.int32,
-                           device=nbrs.device) \
-            .index_add_(0, flat.clamp(0, n_max - 1), valid.to(torch.int32))
+        return in_degree(nbrs, n_max)
 
 
 def _as_device_vectors(vectors, device):

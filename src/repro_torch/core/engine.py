@@ -1068,9 +1068,10 @@ class SVFusionEngine:
                 consolidated = update.consolidate(snapshot)
                 with trace.held(self._update_lock, "update_lock"), \
                         trace.held(self._state_lock, "state_lock"):
-                    log = mvcc.concat_rev_logs(self._rev_logs, self.device)
+                    # per-batch logs, replayed in order by the merge
                     self._state = mvcc.merge_consolidated(
-                        consolidated, self._state, snap_n, log)
+                        consolidated, self._state, snap_n,
+                        list(self._rev_logs))
                     self._snapshot_n = None
                     self._rev_logs = []
                     self._active_versions -= 1

@@ -8,7 +8,9 @@ completion the background result G'_t0 is merged:
   snapshot (id >= snapshot_n) keep their active-graph rows verbatim.
 * **Reverse-edge integration** — reverse-edge triplets (v, v_new, d)
   logged during the window are re-applied onto the consolidated rows of
-  old vertices.
+  old vertices, one insert batch at a time in both modes (the
+  reference's device-mode merge re-applies the whole window in one
+  scatter).
 * deletions that happened during the window stay authoritative (the
   alive bitset is taken from the active graph). In device mode, as in
   the reference, consolidated rows keep their edges to vertices deleted
@@ -31,14 +33,22 @@ import torch
 
 from repro_torch.core.build import compute_e_in
 from repro_torch.core.types import IndexState
-from repro_torch.core.update import (RevLog, _reverse_edge_scatter,
+from repro_torch.core.update import (_reverse_edge_scatter,
                                      reverse_edge_rows_host)
 from repro_torch.core.wal import REC_CONSOLIDATE, crash_point
 
 
 def merge_consolidated(consolidated: IndexState, active: IndexState,
-                       snapshot_n, rev_log: RevLog) -> IndexState:
-    """Merge background-consolidated snapshot into the active state."""
+                       snapshot_n, rev_logs) -> IndexState:
+    """Merge background-consolidated snapshot into the active state.
+
+    ``rev_logs`` is the window's per-insert-batch RevLogs, re-applied in
+    order, each in a scatter of its own on the rows the one before left,
+    as the tiered merge replays them. The reference's device-mode merge
+    re-applies the concatenated log in one scatter, whose conflicts
+    resolve last-writer-wins: a row that every batch of a long window
+    linked to keeps only one window edge, and the earlier batches'
+    vertices lose their in-edges. One log gives the reference's result."""
     gc, ga = consolidated.graph, active.graph
     N = ga.capacity
     dev = ga.nbrs.device
@@ -49,30 +59,18 @@ def merge_consolidated(consolidated: IndexState, active: IndexState,
     graph = ga._replace(nbrs=nbrs)
 
     # re-apply window reverse edges onto consolidated old rows
-    v = torch.as_tensor(rev_log.v, device=dev)
-    v_new = torch.as_tensor(rev_log.v_new, device=dev)
-    apply_mask = (v >= 0) & (v < int(snapshot_n)) \
-        & graph.alive[v.clamp(0, N - 1)] & graph.alive[v_new.clamp(0, N - 1)]
-    targets = torch.where(apply_mask, v, -1)
-    nbrs = _reverse_edge_scatter(graph, targets, v_new,
-                                 torch.as_tensor(rev_log.d, device=dev))
-    graph = graph._replace(nbrs=nbrs, e_in=compute_e_in(nbrs, N),
+    for log in rev_logs:
+        v = torch.as_tensor(log.v, device=dev)
+        v_new = torch.as_tensor(log.v_new, device=dev)
+        apply_mask = (v >= 0) & (v < int(snapshot_n)) \
+            & graph.alive[v.clamp(0, N - 1)] \
+            & graph.alive[v_new.clamp(0, N - 1)]
+        targets = torch.where(apply_mask, v, -1)
+        graph = graph._replace(nbrs=_reverse_edge_scatter(
+            graph, targets, v_new, torch.as_tensor(log.d, device=dev)))
+    graph = graph._replace(e_in=compute_e_in(graph.nbrs, N),
                            version=torch.maximum(ga.version, gc.version) + 1)
     return IndexState(graph, active.cache, active.stats)
-
-
-def empty_rev_log(device="cuda") -> RevLog:
-    z = torch.zeros((0,), dtype=torch.int32, device=device)
-    return RevLog(z, z, torch.zeros((0,), dtype=torch.float32, device=device))
-
-
-def concat_rev_logs(logs, device="cuda") -> RevLog:
-    logs = [lg for lg in logs if lg.v.shape[0]]
-    if not logs:
-        return empty_rev_log(device)
-    return RevLog(torch.cat([lg.v for lg in logs]),
-                  torch.cat([lg.v_new for lg in logs]),
-                  torch.cat([lg.d for lg in logs]))
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,8 @@ caller in the engine, as in the reference.
 """
 from __future__ import annotations
 
+from repro_torch.kernels.e_in_count import kernel as e_in_count_kernel
+from repro_torch.kernels.e_in_count.ref import e_in_count_ref
 from repro_torch.kernels.l2_gather import kernel as l2_gather_kernel
 from repro_torch.kernels.l2_gather.ref import l2_gather_ref
 from repro_torch.kernels.pq_adc import kernel as pq_adc_kernel
@@ -51,6 +53,14 @@ def gather_rows(table, h2s, ids):
     if _on_cpu("gather_rows", table, h2s, ids):
         return row_gather_ref(table, h2s, ids)
     return row_gather_kernel.row_gather(table, h2s, ids)
+
+
+def in_degree(nbrs, n_max):
+    """In-degree of every id below ``n_max`` in the neighbour table
+    ``nbrs`` (-1 = empty slot). [n_max] int32."""
+    if _on_cpu("in_degree", nbrs):
+        return e_in_count_ref(nbrs, n_max)
+    return e_in_count_kernel.e_in_count(nbrs, n_max)
 
 
 def pool_merge(pool_d, pool_i, pool_v, new_d, new_i):

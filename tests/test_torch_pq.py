@@ -217,9 +217,16 @@ def test_new_kernel_modules_import_without_nvcc():
     code = ("import sys; from repro_torch.kernels import _build, ops; "
             "from repro_torch.kernels.pq_adc import kernel as a; "
             "from repro_torch.kernels.row_gather import kernel as b; "
+            "from repro_torch.kernels.e_in_count import kernel as c; "
             "assert not _build._libs and a.launches == b.launches == 0; "
-            "assert set(_build.SOURCES) == {'l2_gather', 'pq_adc', "
-            "'row_gather', 'topk_merge'}; assert 'jax' not in sys.modules")
+            "assert c.launches == 0 and c._fns is None; "
+            "assert set(_build.SOURCES) == {'e_in_count', 'l2_gather', "
+            "'pq_adc', 'row_gather', 'topk_merge'}; "
+            "assert _build.SOURCES['e_in_count'] == "
+            "('e_in_count/csrc/e_in_count.cu',); "
+            "assert all((_build.KERNELS_DIR / f).exists() "
+            "for fs in _build.SOURCES.values() for f in fs); "
+            "assert 'jax' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True,
                    env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
 

@@ -101,6 +101,21 @@ def test_insert_delete_repair_consolidate_match_reference(base):
     same_graph(got, want)
 
 
+@pytest.mark.parametrize("chunk", [None, 7, 128, 1024])
+def test_consolidate_does_not_depend_on_chunk(base, chunk):
+    """Each row is consolidated alone: the port's default chunk (2048
+    rows), a chunk that splits the rows unevenly and chunks below and
+    past the row count all equal the reference at its 512."""
+    st, pst, _ = base
+    dead = np.arange(0, N, 3, dtype=np.int32)
+    st = JU.delete_batch(st, jnp.asarray(dead))
+    pst = TU.delete_batch(pst, torch.from_numpy(dead))
+    want = JU.consolidate(st)
+    got = TU.consolidate(pst) if chunk is None \
+        else TU.consolidate(pst, chunk=chunk)
+    same_graph(got, want)
+
+
 def test_merge_consolidated_with_a_window_log(base):
     """A snapshot consolidated while the active graph takes a delete and
     two insert batches; the window's concatenated log is re-applied at
@@ -120,9 +135,45 @@ def test_merge_consolidated_with_a_window_log(base):
     want = JM.merge_consolidated(JU.consolidate(st), act,
                                  jnp.asarray(snap_n, jnp.int32), log)
     plog = convert.rev_log_from_arrays(*map(np.asarray, log), device="cpu")
-    got = TM.merge_consolidated(TU.consolidate(pst), pact, snap_n, plog)
+    got = TM.merge_consolidated(TU.consolidate(pst), pact, snap_n, [plog])
     same_graph(got, want)
     assert np.isin(np.arange(N, N + 32), got.graph.nbrs[:snap_n].numpy()).any()
+
+
+def test_merge_consolidated_replays_window_batches_in_order(base):
+    """Given the window's per-batch logs, the port's merge re-applies
+    them one scatter a batch: the reference's merge applied once per
+    batch, each on the rows the one before left (the merge of batch b
+    takes the merge of batch b-1 as its consolidated graph), with one
+    version step for the whole merge. Here the batches share target
+    rows, so one scatter over the concatenated log differs."""
+    st, pst, rng = base
+    snap_n = int(st.graph.n)
+    act = JU.delete_batch(st, jnp.arange(0, 60, dtype=jnp.int32))
+    pact = TU.delete_batch(pst, torch.arange(0, 60, dtype=torch.int32))
+    logs, plogs = [], []
+    for seed in (5, 6, 7):
+        v = rng.integers(-5, 6, (16, D)).astype(np.float32)
+        (act, _, rev), (pact, _, prev) = insert_both(act, pact, v, seed)
+        logs.append(rev)
+        plogs.append(prev)
+    sn = jnp.asarray(snap_n, jnp.int32)
+    want = JU.consolidate(st)
+    for log in logs:
+        want = JM.merge_consolidated(want, act, sn, log)
+    cons = TU.consolidate(pst)
+    got = TM.merge_consolidated(cons, pact, snap_n, plogs)
+    for f in got.graph._fields:
+        if f != "version":
+            np.testing.assert_array_equal(
+                getattr(got.graph, f).numpy(),
+                np.asarray(getattr(want.graph, f)), err_msg=f)
+    assert torch.equal(got.graph.version, torch.maximum(
+        pact.graph.version, cons.graph.version) + 1)
+    once = TM.merge_consolidated(cons, pact, snap_n, [
+        convert.rev_log_from_arrays(*map(np.asarray, JM.concat_rev_logs(
+            logs)), device="cpu")])
+    assert not torch.equal(once.graph.nbrs, got.graph.nbrs)
 
 
 def test_reverse_edge_conflicts_keep_the_last_write(base):
@@ -255,7 +306,8 @@ def test_invariant_merge_keeps_new_vertices_and_window_deletions(index):
     newv = torch.from_numpy(np.random.default_rng(12).normal(
         size=(32, DI)).astype(np.float32))
     active, ids, rev = insert(active, newv, 13)
-    merged = TM.merge_consolidated(TU.consolidate(index), active, snap_n, rev)
+    merged = TM.merge_consolidated(TU.consolidate(index), active, snap_n,
+                                 [rev])
     res = search(merged, newv, 14)
     assert float((res.ids[:, 0] == ids).float().mean()) > 0.85
     assert not bool(merged.graph.alive[:400].any())
@@ -364,6 +416,51 @@ def test_engine_bootstrap_delete_repair_and_background_consolidation(
         assert torch.equal(compute_e_in(nb, st.capacity), st.e_in)
         assert len(eng.latencies["insert"]) == 2
         assert len(eng.latencies["delete"]) == 2
+    finally:
+        release.set()
+        eng.close()
+
+
+def test_engine_merge_keeps_the_window_inserts_findable(monkeypatch):
+    """A consolidation merged after eight insert chunks of its window:
+    the merge replays the window chunk by chunk, so each chunk's rows
+    still find themselves as they did before it (one scatter over the
+    concatenated log keeps one edge per target row, and the first
+    chunks fall to ~0.6)."""
+    import threading
+    release = threading.Event()
+    consolidate = TU.consolidate
+    merge = TM.merge_consolidated
+    seen = []
+
+    def held(state, **kw):
+        release.wait(60)
+        return consolidate(state, **kw)
+
+    def logged(cons, active, snap_n, logs):
+        seen.append(len(logs))
+        return merge(cons, active, snap_n, logs)
+    monkeypatch.setattr(TU, "consolidate", held)
+    monkeypatch.setattr(TM, "merge_consolidated", logged)
+    rng = np.random.default_rng(1)
+    eng = engine(rng.normal(size=(2000, DI)).astype(np.float32),
+                 consolidate_threshold=0.2)
+    try:
+        eng.delete(np.arange(0, 500))
+        assert eng._snapshot_n == 2000
+        new = rng.normal(size=(1024, DI)).astype(np.float32)
+        ids = eng.insert(new, chunk=128)
+
+        def found_share():
+            found, _ = eng.search(new)
+            return (found[:, 0] == ids).reshape(8, 128).mean(1)
+        before = found_share()
+        release.set()
+        eng.wait_background()
+        after = found_share()
+        assert seen == [8] and eng.stats()["consolidations"] == 1
+        assert after.mean() >= before.mean() - 0.03, (before, after)
+        assert after.min() >= 0.8, after
     finally:
         release.set()
         eng.close()
