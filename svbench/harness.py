@@ -3,7 +3,8 @@ the traffic for the window, then the metrics and the comparison.
 
 ``run_cell`` takes the device as an argument so that the tests can drive
 a tiny cell on the CPU; ``svbench/run.py`` is the entry that insists on
-a card.
+a card. On the card a cell uses cards ``0 .. chips - 1``, all of one
+kind: the run synchronises, counts and traces each of them.
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ import torch
 from svbench import check, data, load, spec, system
 from svbench.reference.exact import Mirror
 
-TRACE_SLICE_S = 2.0       # the profiled part of a --trace 1 window
+TRACE_SLICE_S = 2.0       # the read part of a --trace 1 run's slice
+TRACE_RAMP_S = 1.0        # the slice's load before its read part
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 
 
@@ -90,16 +92,21 @@ def end_to_end(win: load.Window, setup_s: float, recall: float) -> dict:
     return out
 
 
-def layer_context(win, before, after, lat, wraps, trace_summary):
+def layer_context(win, before, after, lat, wraps, trace_summary,
+                  e2e=None):
     ins = [w for w in win.writes if w.kind == "insert" and w.ts >= win.t0]
     return {
+        # the window's numbers as end_to_end gives them
+        "window": e2e or {},
         "before": before, "after": after,
         "dispatch_s": lat,
         "insert_s": [w.te - w.ts for w in ins],
         "rows_written": sum(len(w.ids) for w in win.writes
                             if w.ts >= win.t0),
         "trace": trace_summary,
-        "least_s": ({op: float(v) for op, v in wraps.least_s.items()}
+        # each op's least time, added over the devices its calls ran on
+        "least_s": ({op: sum(float(v) for v in per.values())
+                     for op, per in wraps.least_s.items()}
                     if wraps is not None else {}),
     }
 
@@ -133,10 +140,15 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     log = log or (lambda *a: None)
     cfg, tr = cell.config, cell.traffic
     cuda = torch.device(dev).type == "cuda"
+    cards = tuple(range(cell.chips)) if cuda else (0,)
+    kind = card_kind(cards) if cuda else "cpu"
+    # the harness's own tensors on the first card, named by its index: a
+    # kernel launch of the program may move a thread's current card
+    home = torch.device("cuda", cards[0]) if cuda else torch.device(dev)
     if cuda:
         from repro_torch.kernels import _build
         _build.build()
-    seeds, vectors, pool, draw_rows = make_inputs(cell, seed, dev)
+    seeds, vectors, pool, draw_rows = make_inputs(cell, seed, home)
     mirror = Mirror(vectors)
     wraps = tr_mod.Wraps().install() if trace else None
     tmp = tempfile.TemporaryDirectory(prefix="svbench-")
@@ -152,11 +164,13 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
         slice_ = None
         if trace:
             slice_ = tr_mod.Slice(torch.device(dev).type,
-                                  os.path.join(tmp.name, "trace.json"))
-            warm_profiler(dev, tmp.name)
+                                  os.path.join(tmp.name, "trace.json"),
+                                  cards)
+            warm_profiler(dev, tmp.name, cards)
         if cuda:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
+            for c in cards:
+                torch.cuda.synchronize(c)
+                torch.cuda.reset_peak_memory_stats(c)
         gc.collect()
         before = system.counters(target) if trace else None
         setup_s = time.perf_counter() - t_start
@@ -164,25 +178,19 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
             f"window {seconds} s")
         span = min(tr.get("trace_slice_s", TRACE_SLICE_S), seconds)
 
-        def during(t0, t_end):
-            if slice_ is None:
-                return
-            time.sleep(max(0.0, t0 + (seconds - span) / 2
-                           - time.perf_counter()))
-            wraps.counting = True
-            slice_.start()
-            time.sleep(span)
-            slice_.stop()
-            wraps.counting = False
-
-        win = load_.run(seconds, during)
-        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        win = load_.run(seconds)
+        peaks = [torch.cuda.max_memory_allocated(c) if cuda else 0
+                 for c in cards]
+        log(f"{len(cards)} x {kind}: memory peaks {peaks}")
         after = lat = None
+        extra = load.Window(t0=0.0, seconds=0.0)
         if trace:
             after = system.counters(target)
             lat = target.latencies["search"][before["search_latencies"]:
                                              after["search_latencies"]]
-        writes += win.writes
+            extra = traced_slice(under_test, target, load_, slice_, wraps,
+                                 span)
+        writes += win.writes + extra.writes
         for w in writes:
             _mirror_write(mirror, w)
         summary = slice_.reduce() if slice_ is not None else None
@@ -198,15 +206,16 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
         del target, load_
         gc.collect()
         if cuda:
-            torch.cuda.empty_cache()
+            for c in cards:
+                with torch.cuda.device(c):
+                    torch.cuda.empty_cache()
         k = cfg["search"]["k"]
         window_ans = _answers(win.requests, pool, k)
-        unanswered = sum(r.error is not None for r in win.requests) \
-            + win.stuck + len(win.errors)
+        unanswered = failures(win) + failures(extra)
         t_ref = time.perf_counter()
         checks = check.compare(
             mirror, window_ans, unanswered, cell.limits, cfg["stated"], k,
-            tr["recall_sample_queries"], seeds["sample"], dev, lost=lost,
+            tr["recall_sample_queries"], seeds["sample"], home, lost=lost,
             probes=probes)
         log(f"reference {time.perf_counter() - t_ref:.1f} s")
     finally:
@@ -216,8 +225,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
         "correct": check.judge(checks),
         "attempted": len(win.requests) + len(
             [w for w in win.writes if w.ts >= win.t0]),
-        "failed": sum(r.error is not None for r in win.requests)
-        + len(win.errors) + win.stuck,
+        "failed": failures(win) + failures(extra),
     }
     metrics = {}
     if not trace:
@@ -226,13 +234,14 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
             if v is not None:
                 metrics[m["name"]] = {"value": v, "unit": m["unit"]}
     else:
-        ctx = layer_context(win, before, after, lat, wraps, summary)
+        ctx = layer_context(win, before, after, lat, wraps, summary, e2e)
         for m in cell.per_layer:
             v = spec.reader(m["name"])(ctx)
             if v is not None:
                 metrics[m["name"]] = {"value": v, "unit": m["unit"]}
     result["metrics"] = metrics
-    result["device"] = device_info(dev, peak, summary)
+    result["device"] = device_info(cuda, kind, len(cards), max(peaks),
+                                   summary)
     if summary is not None:
         result["breakdown"] = {
             "device_ops": [[n, s] for n, s in summary["device_ops"]],
@@ -241,10 +250,40 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
             f"{k_} {after[k_] - before[k_]}" for k_ in before
             if isinstance(before[k_], (int, float))))
         log("trace: " + ", ".join(f"{k_} {summary[k_]}" for k_ in (
-            "device_events", "device_events_unlinked", "host_events",
-            "all_threads", "range_device_s")))
+            "busy_s_per_card", "device_events", "device_events_unlinked",
+            "host_events", "all_threads", "range_device_s")))
     result["checks"] = checks
     return result
+
+
+def traced_slice(under_test, target, load_, slice_, wraps, span):
+    """The traced slice of a ``--trace 1`` run, after its window: the
+    cell's load again under the profiler, read over ``span`` seconds that
+    start ``TRACE_RAMP_S`` into it and end as long before its end. The
+    profiler starts and stops while the program is quiet: no request,
+    write or background consolidation runs (``Slice``). Returns the
+    slice's load."""
+    under_test.settle(target)
+    slice_.start()
+
+    def during(t0, t_end):
+        time.sleep(max(0.0, t0 + TRACE_RAMP_S - time.perf_counter()))
+        wraps.counting = True
+        slice_.begin()
+        time.sleep(span)
+        slice_.cut()
+        wraps.counting = False
+
+    out = load_.run(span + 2 * TRACE_RAMP_S, during)
+    under_test.settle(target)
+    slice_.stop()
+    return out
+
+
+def failures(win: load.Window) -> int:
+    """Requests that failed, writer failures and threads left running."""
+    return (sum(r.error is not None for r in win.requests)
+            + len(win.errors) + win.stuck)
 
 
 def _mirror_write(mirror: Mirror, w: load.Write):
@@ -254,23 +293,33 @@ def _mirror_write(mirror: Mirror, w: load.Write):
         mirror.delete(w.ids, w.ts, w.te)
 
 
-def warm_profiler(dev, tmp):
-    """Start and stop the profiler once, so that its first start (CUPTI's
-    set-up) falls in set-up and not in the window."""
+def warm_profiler(dev, tmp, cards):
+    """Start and stop the profiler once, with work on each card, so that
+    its first start (CUPTI's set-up) falls in set-up and not in the
+    window."""
     from svbench import trace as tr_mod
-    s = tr_mod.Slice(torch.device(dev).type, os.path.join(tmp, "warm.json"))
+    cuda = torch.device(dev).type == "cuda"
+    s = tr_mod.Slice(torch.device(dev).type, os.path.join(tmp, "warm.json"),
+                     cards)
     s.start()
-    torch.zeros(1, device=dev).add_(1)
+    for c in cards:
+        torch.zeros(1, device=torch.device("cuda", c) if cuda
+                    else dev).add_(1)
     s.stop()
 
 
-def device_info(dev, peak, summary) -> dict:
-    if torch.device(dev).type == "cuda":
-        out = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-               "count": 1, "memory_peak_bytes": int(peak)}
-    else:
-        out = {"platform": "cpu", "kind": "cpu", "count": 1,
-               "memory_peak_bytes": int(peak)}
+def card_kind(cards) -> str:
+    """The name of the cell's cards, which have to be all of one kind."""
+    kinds = [torch.cuda.get_device_name(c) for c in cards]
+    if len(set(kinds)) != 1:
+        raise ValueError(f"the cell's cards are not of one kind: {kinds}")
+    return kinds[0]
+
+
+def device_info(cuda, kind, count, peak, summary) -> dict:
+    """``memory_peak_bytes`` is the fullest card's peak."""
+    out = {"platform": "gpu" if cuda else "cpu", "kind": kind,
+           "count": count, "memory_peak_bytes": int(peak)}
     if summary is not None:
         out["busy_s"] = summary["busy_s"]
         out["window_s"] = summary["window_s"]

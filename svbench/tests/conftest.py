@@ -5,13 +5,20 @@ import pytest
 
 def pytest_configure(config):
     config.addinivalue_line(
-        "markers", "card: needs an NVIDIA card (runs on the chip machine: "
-        "python -m pytest svbench/tests -m card)")
+        "markers", "card(chips=n): needs an NVIDIA card, or n of them "
+        "(runs on the chip machine: python -m pytest svbench/tests -m "
+        "card)")
 
 
 @pytest.fixture
-def card():
+def card(request):
+    """The card; a test marked ``card(chips=n)`` needs ``n`` of them."""
     import torch
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card; this machine has none")
+    need = max((m.kwargs.get("chips", 1)
+                for m in request.node.iter_markers("card")), default=1)
+    have = torch.cuda.device_count()
+    if have < need:
+        pytest.skip(f"needs {need} cards; this machine has {have}")
     return torch.device("cuda")

@@ -69,7 +69,14 @@ def test_each_cell_finds_its_files_and_reports_enough(cell):
         assert m["moves"] in e2e, (cell, m["name"])
         assert callable(spec.reader(m["name"]))
     assert "dist_gap" in c.limits
-    assert c.chips == 1
+    assert c.chips in (1, 4)
+
+
+def test_four_card_cells_within_their_share():
+    """A cell takes four cards only where what it measures exists across
+    cards: at most a quarter of the cells, rounded down, and always one."""
+    four = sum(w["chips"] == 4 for w in B["workloads"])
+    assert four <= max(1, len(B["workloads"]) // 4)
 
 
 def test_config_files_and_reduced_keys():

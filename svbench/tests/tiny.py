@@ -1,5 +1,6 @@
 """A tiny copy of a benchmark cell for the CPU tests: the cell's own
-traffic shape and engine settings at a few thousand rows of width 16."""
+traffic shape and engine settings at a few thousand rows of width 16;
+and a cell cut in rows alone, on four cards, for a test on the card."""
 from __future__ import annotations
 
 import copy
@@ -54,8 +55,26 @@ def tiny_cell(name: str, clients: int = 3) -> spec.Cell:
 
 
 def run_tiny(cell: spec.Cell, seed=12345678901, seconds=1.0, trace=False,
-             control=False) -> dict:
+             control=False, under_test=None) -> dict:
+    """A run on the CPU against ``under_test``: by default the program,
+    or with ``control`` the control."""
     from svbench import control as control_, system
+    if under_test is None:
+        under_test = control_ if control else system
     return harness.run_cell(cell, seed, seconds, trace, "cpu",
-                            time.perf_counter(),
-                            under_test=control_ if control else system)
+                            time.perf_counter(), under_test=under_test)
+
+
+def four_card_cell(name: str = "deep1b_device.search_uniform",
+                   n: int = 65536) -> spec.Cell:
+    """``name`` on four cards for the replicas' run on the card
+    (``replicas.py``): the configuration's widths and engine settings and
+    the cell's traffic, cut to ``n`` rows, the capacity, the cache (half
+    the rows, as in the cell) and the query pool with them."""
+    cell = spec.load_cell(name)
+    c = copy.deepcopy(cell.config)
+    c.update(n=n, capacity=1 << 20)
+    c["engine"]["cache_slots"] = n // 2
+    t = dict(cell.traffic, query_pool=1 << 18)
+    return spec.Cell(cell.name, 4, c, t, dict(cell.limits), cell.end_to_end,
+                     cell.per_layer)
