@@ -23,8 +23,16 @@ Entry points: the reference draws each shard's with
 reproduce. Here the caller passes them, or the step draws them from a
 ``torch.Generator`` seeded from (seed, shard) on the shard's device
 (``shard_entries``): the port's own draw.
+
+One process can also hold one index over several cards
+(``SVFusionEngine`` with ``cards > 1``): the rows are interleaved over
+the cards (``interleave_route``, ``interleave_ids``), each card's answers
+are merged by ``merge_shard_results``, and ``InterleavedGraph`` reads the
+cards' published graphs by global id.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -106,10 +114,14 @@ class RankMesh:
         return x[i * m:(i + 1) * m]
 
 
+def shard_seed(seed, shard) -> int:
+    """A seed derived from (seed, shard)."""
+    return int(np.random.SeedSequence([seed, shard]).generate_state(1)[0])
+
+
 def shard_generator(seed, shard, device):
     """A ``torch.Generator`` on ``device`` seeded from (seed, shard)."""
-    s = int(np.random.SeedSequence([seed, shard]).generate_state(1)[0])
-    return torch.Generator(device=device).manual_seed(s)
+    return torch.Generator(device=device).manual_seed(shard_seed(seed, shard))
 
 
 def shard_entries(seed, shard, batch, pool, n_local, device):
@@ -149,6 +161,56 @@ def merge_shard_results(ids, dists, k):
     ad = dists.movedim(0, 1).reshape(B, -1)
     d, sel = smallest_k(ad, k)
     return ai.gather(1, sel), d
+
+
+def interleave_route(ids, cards):
+    """Global ids -> (card, local row) in the interleaved layout of one
+    index over ``cards`` cards (``SVFusionEngine`` with ``cards > 1``):
+    id g lives on card g % cards at row g // cards, so the ids stay dense
+    from 0 and each card's rows stay dense too. numpy arrays or tensors."""
+    return ids % cards, ids // cards
+
+
+def interleave_ids(local, card, cards):
+    """Card ``card``'s local rows (numpy) -> global ids; -1 stays -1."""
+    local = np.asarray(local, np.int64)
+    return np.where(local >= 0, local * cards + card, -1)
+
+
+class InterleavedColumn:
+    """One table of the cards' graphs (``vectors`` or ``alive``) read by
+    global id: ``col[ids]`` takes a tensor of ids on ``device`` and
+    returns the rows that hold them, in the order of ``ids``, on that
+    device."""
+
+    def __init__(self, parts, device):
+        self.parts, self.device = list(parts), torch.device(device)
+
+    def __getitem__(self, ids):
+        ids = torch.as_tensor(ids, device=self.device)
+        card, local = interleave_route(ids.long(), len(self.parts))
+        first = self.parts[0]
+        out = torch.empty(tuple(ids.shape) + tuple(first.shape[1:]),
+                          dtype=first.dtype, device=ids.device)
+        for c, part in enumerate(self.parts):
+            on = card == c
+            out[on] = part[local[on].to(part.device)].to(ids.device)
+        return out
+
+
+class InterleavedGraph(NamedTuple):
+    """The published graphs of the cards as one index: ``n`` is one past
+    the largest global id handed out."""
+    n: int
+    vectors: InterleavedColumn
+    alive: InterleavedColumn
+
+    @staticmethod
+    def of(n, graphs):
+        dev = graphs[0].vectors.device
+        return InterleavedGraph(
+            int(n), InterleavedColumn([g.vectors for g in graphs], dev),
+            InterleavedColumn([g.alive for g in graphs], dev))
 
 
 def _all_gather(x, group):

@@ -19,13 +19,18 @@ snapshots (at open, every ``snapshot_every_epochs`` update batches, on
 manifest is recovered instead of rebuilt (``core/wal.py``); a failed log
 write turns the engine read-only. With ``attributes`` set, inserts carry
 per-id attribute columns and searches take a ``filter``
-(``core/filters.py``).
+(``core/filters.py``). With ``cards > 1`` a device-mode index is spread
+over that many cards from one process: one device-mode index a card,
+every search fanned out to all of them and merged, every write routed to
+the card that owns the row (``SVFusionEngine`` "Several cards").
 """
 from __future__ import annotations
 
+import dataclasses
 import queue
 import threading
 import time
+from concurrent import futures
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -34,14 +39,14 @@ import torch
 
 from repro_torch.core import cache as Cache
 from repro_torch.core import calibrate
-from repro_torch.core import mvcc, quant, slo, trace, update
+from repro_torch.core import distributed, mvcc, quant, slo, trace, update
 from repro_torch.core import wal as walmod
 from repro_torch.core.build import (_exact_knn, build_index,
                                     build_tiered_backend, compute_e_in)
 from repro_torch.core.search import (effective_rerank_depth, search_batch,
                                      search_tiered)
 from repro_torch.core.tiers import probe_fetch_latency
-from repro_torch.core.types import (IndexState, SearchParams,
+from repro_torch.core.types import (IndexState, SearchParams, Stats,
                                     init_graph_state, init_stats)
 
 
@@ -179,9 +184,28 @@ class EngineConfig:
     #                                      executor runs; "cpu" runs the
     #                                      plain PyTorch versions of the
     #                                      kernels (tests)
+    cards: int = 1                       # device mode: cards the index is
+    #                                      spread over, shard c on cuda:c
+    #                                      (every shard on the CPU with
+    #                                      device="cpu"); capacity,
+    #                                      cache_slots and the other table
+    #                                      sizes are per card
 
     def __post_init__(self):
-        resolve_device(self.device, "EngineConfig")
+        dev = resolve_device(self.device, "EngineConfig")
+        if self.cards < 1:
+            raise ValueError(f"EngineConfig(cards={self.cards}): at least "
+                             "one card")
+        if self.cards > 1 and self.disk_path:
+            raise ValueError(
+                f"EngineConfig(cards={self.cards}) spreads a device-mode "
+                "index over cards; the three-tier mode (disk_path) holds "
+                "one index: set cards=1")
+        if self.cards > 1 and dev.type == "cuda" \
+                and torch.cuda.device_count() < self.cards:
+            raise RuntimeError(
+                f"EngineConfig(cards={self.cards}): "
+                f"{torch.cuda.device_count()} CUDA devices are available")
 
 
 def resolve_device(device, who: str) -> torch.device:
@@ -408,6 +432,10 @@ class CoalescingScheduler:
         self._th = None
 
 
+# the counters an engine over several cards reads as its cards' sums
+SUMMED = ("_consolidations", "host_syncs", "_spec_hits", "_spec_misses")
+
+
 class SVFusionEngine:
     """Thread-safe SANNS engine over the functional core.
 
@@ -433,6 +461,26 @@ class SVFusionEngine:
     consolidation on an MVCC snapshot (``consolidate_async``), at most
     ``max_versions`` in flight; the reverse edges inserted meanwhile are
     logged and re-applied at the merge.
+
+    **Several cards** (device mode, ``cfg.cards > 1``): one process holds
+    one index over cards ``0 .. cards-1``, a one-card engine a card
+    (``_shards``; shard c on ``cuda:c``, its seed drawn from (seed, c) by
+    ``distributed.shard_seed``). Global id g lives on card g % cards at
+    local row g // cards (``distributed.interleave_route``): the initial
+    rows keep their order as ids 0..n-1 and card c is built from
+    ``vectors[c::cards]``; an insert hands out the next ids and applies
+    each card's rows on that card; a delete routes each id likewise. Both
+    return once every card has published. One coalescer stays in front:
+    each dispatch runs every card's executor at once, and the per-card
+    answers are merged by ``distributed.merge_shard_results``. A card's
+    share of a dispatch or a write runs on long-lived worker threads of
+    that card, with the card current, the cards at once. Each card keeps
+    its own repair cadence and consolidation; the cards' consolidations
+    take their snapshots when each card passes the threshold and run one
+    at a time (``_consolidate_gate``). ``state.graph`` reads the
+    cards' published graphs by global id
+    (``distributed.InterleavedGraph``); the counters ``SUMMED`` names are
+    the cards' sums.
     """
 
     def __init__(self, init_vectors, cfg: EngineConfig, init_attrs=None):
@@ -456,18 +504,43 @@ class SVFusionEngine:
         if init_attrs is not None and cfg.attributes is None:
             raise ValueError("init_attrs passed but cfg.attributes is "
                              "unset: declare the attribute schema")
+        self._backend = None                   # TieredBackend in 3-tier mode
+        self._placement = None                 # HostPlacement in 3-tier mode
+        self.build_timings: dict = {}
+        self._cost_model = None                # calibrate.CostModel, lazily
+        self._shards = None                    # one engine a card (cards > 1)
+        if cfg.cards > 1:
+            self._init_cards(init_vectors, cfg)
+        else:
+            self._init_index(init_vectors, cfg)
+        self._coalescer = (CoalescingScheduler(
+            self._search_exec, max_batch=cfg.coalesce_max_batch,
+            max_window=cfg.coalesce_window,
+            policy=slo.SLOPolicy(
+                target_p99=cfg.slo_target_p99,
+                default_deadline=cfg.slo_default_deadline,
+                tenant_weights=cfg.slo_tenant_weights,
+                degrade_order=tuple(cfg.slo_degrade_order),
+                degrade_at=cfg.slo_degrade_at,
+                shed_at=cfg.slo_shed_at,
+                restore_after=cfg.slo_restore_after,
+                tenant_rate_limits=cfg.slo_tenant_rate_limits))
+            if cfg.coalesce else None)
+        # host seconds of each search dispatch, insert and delete call:
+        # the durations of the engine.* spans, filled on and off
+        self.latencies: dict[str, list] = {"search": [], "insert": [],
+                                           "delete": []}
+
+    def _init_index(self, init_vectors, cfg: EngineConfig):
+        """The index and its update stream's state on one device."""
         self._key = torch.Generator(device=self.device)
         self._key.manual_seed(cfg.seed)
         self._state_lock = threading.RLock()   # publish/subscribe
         self._update_lock = threading.Lock()   # serializes the update stream
         self._cache_lock = threading.Lock()
-        self._backend = None                   # TieredBackend in 3-tier mode
-        self._placement = None                 # HostPlacement in 3-tier mode
         self._rng = np.random.default_rng(cfg.seed)
         self._spec_rank = cfg.spec_rank        # resolved by the tiered probe
         self._spec_probe_us = None
-        self.build_timings: dict = {}
-        self._cost_model = None                # calibrate.CostModel, lazily
         if cfg.disk_path:
             self._init_tiered(init_vectors, cfg)
         else:
@@ -490,6 +563,9 @@ class SVFusionEngine:
         self._rev_logs: list = []
         self._snapshot_n: Optional[int] = None
         self._bg_threads: list = []
+        # held by a device-mode consolidation's work; one card runs one at
+        # a time anyway, the cards of an engine over several share one
+        self._consolidate_gate = threading.Lock()
         self.host_syncs = 0            # device-mode executor reads
         self._search_rounds = 0        # tiered executor round accounting
         self._search_dispatches = 0    # device dispatches issued by search
@@ -503,23 +579,51 @@ class SVFusionEngine:
         #                                low-selectivity path
         self._filter_last_selectivity = None
         self._filter_last_path = None
-        self._coalescer = (CoalescingScheduler(
-            self._search_exec, max_batch=cfg.coalesce_max_batch,
-            max_window=cfg.coalesce_window,
-            policy=slo.SLOPolicy(
-                target_p99=cfg.slo_target_p99,
-                default_deadline=cfg.slo_default_deadline,
-                tenant_weights=cfg.slo_tenant_weights,
-                degrade_order=tuple(cfg.slo_degrade_order),
-                degrade_at=cfg.slo_degrade_at,
-                shed_at=cfg.slo_shed_at,
-                restore_after=cfg.slo_restore_after,
-                tenant_rate_limits=cfg.slo_tenant_rate_limits))
-            if cfg.coalesce else None)
-        # host seconds of each search dispatch, insert and delete call:
-        # the durations of the engine.* spans, filled on and off
-        self.latencies: dict[str, list] = {"search": [], "insert": [],
-                                           "delete": []}
+
+    def _init_cards(self, init_vectors, cfg: EngineConfig):
+        """One device-mode engine a card, each built from its interleaved
+        share of ``init_vectors``, and two worker threads a card with
+        that card current: the card's share of a search dispatch and of
+        a write run at once, as the dispatcher and a writer do on one
+        card."""
+        if init_vectors is None:
+            raise ValueError("device mode has no durable state to "
+                             "recover: init_vectors is required")
+        cards = cfg.cards
+        devices = [torch.device(self.device.type, c)
+                   if self.device.type == "cuda" else self.device
+                   for c in range(cards)]
+        self._shards = [SVFusionEngine(init_vectors[c::cards],
+                                       dataclasses.replace(
+                                           cfg, cards=1, device=str(dev),
+                                           seed=distributed.shard_seed(
+                                               cfg.seed, c),
+                                           coalesce=False))
+                        for c, dev in enumerate(devices)]
+        # a consolidation is host work under the one interpreter lock:
+        # the cards' run one at a time, each on its own snapshot
+        gate = threading.Lock()
+        for s in self._shards:
+            s._consolidate_gate = gate
+            for k, v in s.build_timings.items():
+                self.build_timings[k] = self.build_timings.get(k, 0.0) + v
+        self._n = len(init_vectors)             # ids handed out: 0 .. n-1
+        self._route_lock = threading.Lock()     # serializes routed writes
+        self._card_dispatches = [0] * cards
+        self._workers = [futures.ThreadPoolExecutor(
+            2, thread_name_prefix=f"svfusion-card{c}",
+            initializer=(torch.cuda.set_device if dev.type == "cuda"
+                         else None), initargs=(dev,))
+            for c, dev in enumerate(devices)]
+
+    def __getattr__(self, name):
+        # over several cards the engine holds no index of its own: the
+        # counters the benchmark reads are its cards' sums
+        shards = self.__dict__.get("_shards")
+        if shards and name in SUMMED:
+            return sum(getattr(s, name) for s in shards)
+        raise AttributeError(f"{type(self).__name__!r} object has no "
+                             f"attribute {name!r}")
 
     def _init_tiered(self, init_vectors, cfg: EngineConfig):
         if cfg.cache_dtype not in ("bf16", "fp32"):
@@ -739,40 +843,80 @@ class SVFusionEngine:
         if filter is not None:
             raise ValueError("filtered search requires the three-tier "
                              "mode with cfg.attributes set")
+        if self._shards is not None:
+            return self._search_cards(queries, update_cache, degrade)
         with trace.span("engine.search", into=self.latencies["search"]):
-            sp, _ = self._degraded_knobs(degrade)
-            st = self._read_state()
-            q = torch.as_tensor(np.asarray(queries, np.float32),
-                                device=self.device)
-            B = q.shape[0]
-            Bp = 1 << max(0, (B - 1)).bit_length()
-            if Bp != B:
-                q = torch.cat([q, q.new_zeros((Bp - B, q.shape[1]))])
-            res = search_batch(st, q, self._next_key(), sp)
-            syncs = res.host_syncs + 1                 # the key's seed
-            if Bp != B:
-                lane = (torch.arange(Bp, device=self.device) < B)[:, None]
-                res = res._replace(ids=res.ids[:B], dists=res.dists[:B],
-                                   acc_ids=torch.where(lane, res.acc_ids,
-                                                       -1),
-                                   acc_hit=res.acc_hit & lane)
-            with trace.span("engine.sync"):
-                ids = res.ids.cpu().numpy()
-            if update_cache:
-                # placement is applied to the *current* state (the cache
-                # tier is shared; graph fields pass through untouched)
-                with trace.held(self._state_lock, "state_lock"):
-                    cur = self._state
-                    new = Cache.apply_wavp(cur, res.acc_ids, res.acc_hit,
-                                           self.cfg.search,
-                                           now=self._update_batches)
-                    self._state = cur._replace(cache=new.cache,
-                                               stats=new.stats)
-            with trace.held(self._cache_lock, "cache_lock"):
-                self.host_syncs += syncs
+            ids, dists = self._search_device(queries, update_cache, degrade)
         with trace.span("engine.sync"):
-            dists = res.dists.cpu().numpy()
+            dists = dists.cpu().numpy()
         return ids, dists
+
+    def _search_device(self, queries, update_cache, degrade):
+        """The device executor and the WAVP placement pass on this
+        engine's index; returns (ids as numpy, dists on the device)."""
+        sp, _ = self._degraded_knobs(degrade)
+        st = self._read_state()
+        q = torch.as_tensor(np.asarray(queries, np.float32),
+                            device=self.device)
+        B = q.shape[0]
+        Bp = 1 << max(0, (B - 1)).bit_length()
+        if Bp != B:
+            q = torch.cat([q, q.new_zeros((Bp - B, q.shape[1]))])
+        res = search_batch(st, q, self._next_key(), sp)
+        syncs = res.host_syncs + 1                 # the key's seed
+        if Bp != B:
+            lane = (torch.arange(Bp, device=self.device) < B)[:, None]
+            res = res._replace(ids=res.ids[:B], dists=res.dists[:B],
+                               acc_ids=torch.where(lane, res.acc_ids, -1),
+                               acc_hit=res.acc_hit & lane)
+        with trace.span("engine.sync"):
+            ids = res.ids.cpu().numpy()
+        if update_cache:
+            # placement is applied to the *current* state (the cache
+            # tier is shared; graph fields pass through untouched)
+            with trace.held(self._state_lock, "state_lock"):
+                cur = self._state
+                new = Cache.apply_wavp(cur, res.acc_ids, res.acc_hit,
+                                       self.cfg.search,
+                                       now=self._update_batches)
+                self._state = cur._replace(cache=new.cache,
+                                           stats=new.stats)
+        with trace.held(self._cache_lock, "cache_lock"):
+            self.host_syncs += syncs
+        return ids, res.dists
+
+    def _search_cards(self, queries, update_cache, degrade):
+        """One dispatch over every card: each card's executor runs on its
+        worker at once, then the answers, mapped to global ids, are
+        merged shard-major (``distributed.merge_shard_results``)."""
+        cards = self.cfg.cards
+        with trace.span("engine.search", into=self.latencies["search"]):
+            jobs = [w.submit(self._search_card, c, queries, update_cache,
+                             degrade) for c, w in enumerate(self._workers)]
+            futures.wait(jobs)
+            parts = [j.result() for j in jobs]
+            done = [p[2] for p in parts]
+            if trace.TRACER.on:
+                trace.record("wait.shard", min(done), max(done))
+            with trace.span("shard.merge"):
+                ids = np.stack([distributed.interleave_ids(p[0], c, cards)
+                                for c, p in enumerate(parts)])
+                ids, dists = distributed.merge_shard_results(
+                    torch.from_numpy(ids),
+                    torch.from_numpy(np.stack([p[1] for p in parts])),
+                    self.cfg.search.k)
+        return ids.numpy(), dists.numpy()
+
+    def _search_card(self, c, queries, update_cache, degrade):
+        """Card ``c``'s share of a dispatch (on its worker thread): (local
+        ids, dists, the end on ``perf_counter_ns``)."""
+        with trace.span("shard.search"):
+            ids, dists = self._shards[c]._search_device(queries,
+                                                        update_cache, degrade)
+            with trace.span("engine.sync"):
+                dists = dists.cpu().numpy()
+        self._card_dispatches[c] += 1
+        return ids, dists, time.perf_counter_ns()
 
     def _search_tiered(self, queries, update_cache=True, degrade=0,
                        filter=None):
@@ -857,39 +1001,78 @@ class SVFusionEngine:
                                      "set")
                 attr_cols = self._backend.attrs.schema.coerce(attributes,
                                                               len(vectors))
-            out = []
-            with trace.held(self._update_lock, "update_lock"):
-                for s in range(0, len(vectors), chunk):
-                    part_np = vectors[s:s + chunk]
-                    if self._backend is not None:
-                        part_attrs = None
-                        if attr_cols is not None:
-                            part_attrs = (attr_cols[0][s:s + chunk],
-                                          attr_cols[1][s:s + chunk])
-                        out.append(self._insert_tiered(part_np, part_attrs))
-                        continue
-                    part = torch.as_tensor(part_np, device=self.device)
-                    st = self._state
-                    rev = None
-                    if int(st.graph.alive.sum()) < 2 * self.cfg.degree:
-                        st2, ids = self._bootstrap_insert(st, part)
-                    else:
-                        n = max(int(st.graph.n), 1)
-                        entries = torch.randint(
-                            0, n, (len(part_np), self.cfg.search.pool),
-                            generator=self._next_key(), dtype=torch.int32,
-                            device=self.device)
-                        st2, ids, rev = update.insert_batch(st, part, entries,
-                                                            self.cfg.search)
-                    if rev is not None and self._snapshot_n is not None:
-                        self._rev_logs.append(rev)
-                    self._publish(st2)
-                    self._update_batches += 1
-                    self._batches_since_repair += 1
-                    out.append(ids.cpu().numpy())
-            self._maybe_maintain()
+            if self._shards is not None:
+                return self._insert_cards(vectors, chunk)
+            ids = self._apply_insert(vectors, chunk, attr_cols)
             self._maybe_checkpoint()
-            return np.concatenate(out) if out else np.zeros((0,), np.int32)
+            return ids
+
+    def _apply_insert(self, vectors, chunk, attr_cols=None):
+        """The chunks of one insert on this engine's index, then the
+        maintenance they call for; returns the new ids."""
+        out = []
+        with trace.held(self._update_lock, "update_lock"):
+            for s in range(0, len(vectors), chunk):
+                part_np = vectors[s:s + chunk]
+                if self._backend is not None:
+                    part_attrs = None
+                    if attr_cols is not None:
+                        part_attrs = (attr_cols[0][s:s + chunk],
+                                      attr_cols[1][s:s + chunk])
+                    out.append(self._insert_tiered(part_np, part_attrs))
+                    continue
+                part = torch.as_tensor(part_np, device=self.device)
+                st = self._state
+                rev = None
+                if int(st.graph.alive.sum()) < 2 * self.cfg.degree:
+                    st2, ids = self._bootstrap_insert(st, part)
+                else:
+                    n = max(int(st.graph.n), 1)
+                    entries = torch.randint(
+                        0, n, (len(part_np), self.cfg.search.pool),
+                        generator=self._next_key(), dtype=torch.int32,
+                        device=self.device)
+                    st2, ids, rev = update.insert_batch(st, part, entries,
+                                                        self.cfg.search)
+                if rev is not None and self._snapshot_n is not None:
+                    self._rev_logs.append(rev)
+                self._publish(st2)
+                self._update_batches += 1
+                self._batches_since_repair += 1
+                out.append(ids.cpu().numpy())
+        self._maybe_maintain()
+        return np.concatenate(out) if out else np.zeros((0,), np.int32)
+
+    def _insert_cards(self, vectors, chunk):
+        """Hand out the next ids and insert each card's rows on it, the
+        cards at once."""
+        with trace.held(self._route_lock, "route_lock"):
+            ids = np.arange(self._n, self._n + len(vectors), dtype=np.int64)
+            card, local = distributed.interleave_route(ids, self.cfg.cards)
+            got = self._route(card, lambda s, on: s._apply_insert(
+                vectors[on], chunk))
+            for c, rows in got.items():
+                if not np.array_equal(rows, local[card == c]):
+                    raise RuntimeError(
+                        f"card {c} placed an insert at rows {rows[:4]}..., "
+                        f"not at {local[card == c][:4]}...: the cards' rows "
+                        "no longer follow the interleaved ids")
+            self._n += len(vectors)
+        return ids
+
+    def _route(self, card, apply):
+        """``apply(shard, on)`` for every card that ``card`` names, each on
+        its card's worker, all at once; returns {card: result} once every
+        card has published (the caller holds the route lock)."""
+        jobs = {c: self._workers[c].submit(self._route_card, c, apply,
+                                           card == c)
+                for c in range(len(self._shards)) if (card == c).any()}
+        futures.wait(jobs.values())
+        return {c: j.result() for c, j in jobs.items()}
+
+    def _route_card(self, c, apply, on):
+        with trace.span("shard.route"):
+            return apply(self._shards[c], on)
 
     def _insert_tiered(self, part_np, part_attrs=None):
         """One three-tier insert chunk (caller holds the update lock). A
@@ -952,25 +1135,42 @@ class SVFusionEngine:
         deleted ids are ignored."""
         with trace.span("engine.delete", into=self.latencies["delete"]):
             self._check_writable()
-            with trace.held(self._update_lock, "update_lock"):
-                if self._backend is not None:
-                    # bounds/alive filtering and log-before-write live in
-                    # update.delete_tiered
-                    try:
-                        update.delete_tiered(self._backend, ids)
-                    except walmod.WALWriteError as e:
-                        self._degrade(str(e))
-                else:
-                    st2 = update.delete_batch(
-                        self._state,
-                        torch.as_tensor(np.asarray(ids, np.int32),
-                                        device=self.device))
-                    self._publish(st2)
-                self._update_batches += 1
-                self._batches_since_repair += 1
-                self._batches_since_snapshot += 1
-            self._maybe_maintain()
+            if self._shards is not None:
+                self._delete_cards(ids)
+                return
+            self._apply_delete(ids)
             self._maybe_checkpoint()
+
+    def _apply_delete(self, ids):
+        """One delete on this engine's index, then the maintenance it
+        calls for."""
+        with trace.held(self._update_lock, "update_lock"):
+            if self._backend is not None:
+                # bounds/alive filtering and log-before-write live in
+                # update.delete_tiered
+                try:
+                    update.delete_tiered(self._backend, ids)
+                except walmod.WALWriteError as e:
+                    self._degrade(str(e))
+            else:
+                st2 = update.delete_batch(
+                    self._state,
+                    torch.as_tensor(np.asarray(ids, np.int32),
+                                    device=self.device))
+                self._publish(st2)
+            self._update_batches += 1
+            self._batches_since_repair += 1
+            self._batches_since_snapshot += 1
+        self._maybe_maintain()
+
+    def _delete_cards(self, ids):
+        """Delete each id on the card that holds it; ids never handed out
+        are ignored, as one card ignores them."""
+        ids = np.asarray(ids, np.int64).reshape(-1)
+        with trace.held(self._route_lock, "route_lock"):
+            ids = ids[(ids >= 0) & (ids < self._n)]
+            card, local = distributed.interleave_route(ids, self.cfg.cards)
+            self._route(card, lambda s, on: s._apply_delete(local[on]))
 
     # ------------------------------------------------------------------
     # durability (core/wal.py)
@@ -1049,7 +1249,10 @@ class SVFusionEngine:
         """Background global consolidation on an MVCC snapshot (device
         mode) or streamed over the disk tier (three-tier mode). Returns
         the worker thread, or None when a version is already in flight or
-        the bounded-version policy defers it."""
+        the bounded-version policy defers it; over several cards, a list
+        of each card's."""
+        if self._shards is not None:
+            return [s.consolidate_async(wait) for s in self._shards]
         if self._backend is not None:
             return self._consolidate_tiered_async(wait)
         with trace.held(self._state_lock, "state_lock"):
@@ -1064,7 +1267,8 @@ class SVFusionEngine:
             self._active_versions += 1
 
         def work():
-            with trace.span("engine.consolidate"):
+            with trace.held(self._consolidate_gate, "consolidate_gate"), \
+                    trace.span("engine.consolidate"):
                 consolidated = update.consolidate(snapshot)
                 with trace.held(self._update_lock, "update_lock"), \
                         trace.held(self._state_lock, "state_lock"):
@@ -1127,12 +1331,28 @@ class SVFusionEngine:
         return th
 
     def wait_background(self):
+        if self._shards is not None:
+            for s in self._shards:
+                s.wait_background()
+            return
         for th in self._bg_threads:
             th.join()
         self._bg_threads = []
 
     @property
     def state(self) -> IndexState:
+        if self._shards is not None:
+            # the cards' published graphs read by global id, and their
+            # placement counters added up; each card's cache stays its own
+            parts = [s.state for s in self._shards]
+            with trace.held(self._route_lock, "route_lock"):
+                n = self._n
+            return IndexState(
+                graph=distributed.InterleavedGraph.of(
+                    n, [p.graph for p in parts]),
+                cache=None,
+                stats=Stats(*(torch.tensor(sum(int(x) for x in f))
+                              for f in zip(*(p.stats for p in parts)))))
         with self._state_lock:
             st = self._state
         if self._backend is not None:
@@ -1161,6 +1381,12 @@ class SVFusionEngine:
         if self._backend is not None:
             d.update(self._tiered_stats())
             dim = self._backend.dim
+        elif self._shards is not None:
+            d["n"] = st.graph.n
+            d["shards"] = [self._card_stats(c)
+                           for c in range(len(self._shards))]
+            d["alive"] = sum(x["alive"] for x in d["shards"])
+            dim = self._shards[0].state.graph.vectors.shape[1]
         else:
             d["n"] = int(st.graph.n)
             d["alive"] = int(st.graph.alive.sum())
@@ -1183,6 +1409,14 @@ class SVFusionEngine:
                    + d["transfers"] * cm.t_transfer)
         d["modeled_us_per_access"] = modeled / acc * 1e6
         return d
+
+    def _card_stats(self, c) -> dict:
+        shard = self._shards[c]
+        graph = shard.state.graph
+        return {"n": int(graph.n), "alive": int(graph.alive.sum()),
+                "dispatches": self._card_dispatches[c],
+                "consolidations": shard._consolidations,
+                "host_syncs": shard.host_syncs}
 
     def _tiered_stats(self) -> dict:
         be = self._backend
@@ -1242,10 +1476,17 @@ class SVFusionEngine:
         """Wait for background consolidations, stop the coalescer's
         dispatcher (failing any queued request), publish a final durable
         epoch (a clean shutdown reopens with no WAL replay) and, in
-        three-tier mode, stop the prefetcher and flush the disk tier."""
+        three-tier mode, stop the prefetcher and flush the disk tier;
+        over several cards, stop the card workers and close each card's
+        engine."""
         self.wait_background()
         if self._coalescer is not None:
             self._coalescer.stop()
+        if self._shards is not None:
+            for w in self._workers:
+                w.shutdown()
+            for s in self._shards:
+                s.close()
         if self._wal is not None and not self._degraded \
                 and not self._wal.closed:
             try:

@@ -7,6 +7,7 @@ A library is keyed by a hash of its sources and the flags, so an edited
 source builds anew and an unchanged one is reused. Nothing is built when
 a module is imported: the first launch builds, and ``build()`` builds
 every kernel at once (one nvcc per library, all started together).
+``launch`` calls a library's C entry point on a tensor's card.
 """
 from __future__ import annotations
 
@@ -93,3 +94,18 @@ def load(name: str) -> ctypes.CDLL:
             if lib is None:
                 lib = _libs[name] = ctypes.CDLL(str(_target(name)[1]))
     return lib
+
+
+def launch(name: str, fns, device, *args) -> None:
+    """Call kernel ``name``'s C entry point (``fns`` is its (launch,
+    error string) pair) as ``launch(*args, stream)`` on ``device``'s
+    current stream, with ``device`` the current card for the call alone:
+    the calling thread's current card is the same afterwards, so one
+    thread can drive several cards. Raises on a CUDA error."""
+    import torch
+    fn, err = fns
+    with torch.cuda.device(device):
+        code = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"{name} launch failed: {err(code).decode()} "
+                           f"(cudaError {code})")

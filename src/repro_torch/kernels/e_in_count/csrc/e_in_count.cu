@@ -86,10 +86,7 @@ __global__ void __launch_bounds__(kThreads)
 // launch_geometry. Returns the launch's cudaGetLastError(), 0 on success.
 extern "C" int e_in_count_launch(const int32_t* ids, long long total,
                                  int32_t* out, long long n_max,
-                                 long long blocks, int device,
-                                 void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+                                 long long blocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uintptr_t a = reinterpret_cast<uintptr_t>(ids);
   if (total < 1 || n_max < 1 || n_max > 0x7fffffffLL || blocks < 1 ||

@@ -38,8 +38,7 @@ def _launcher():
         lib = _build.load("e_in_count")
         fn = lib.e_in_count_launch
         fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_void_p]
+                       ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         err = lib.e_in_count_error_string
         err.argtypes = [ctypes.c_int]
@@ -72,15 +71,9 @@ def e_in_count(nbrs, n_max):
     total = nbrs.numel()
     if total == 0 or n_max == 0:
         return out
-    fn, err = _launcher()
-    dev = nbrs.device.index if nbrs.device.index is not None \
-        else torch.cuda.current_device()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    code = fn(nbrs.data_ptr(), total, out.data_ptr(), n_max,
-              launch_geometry(total, sms), dev, stream)
-    if code != 0:
-        raise RuntimeError(f"e_in_count launch failed: {err(code).decode()} "
-                           f"(cudaError {code})")
+    sms = torch.cuda.get_device_properties(
+        nbrs.device).multi_processor_count
+    _build.launch("e_in_count", _launcher(), nbrs.device, nbrs.data_ptr(),
+                  total, out.data_ptr(), n_max, launch_geometry(total, sms))
     launches += 1
     return out

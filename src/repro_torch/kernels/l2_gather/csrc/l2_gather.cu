@@ -300,10 +300,9 @@ extern "C" int l2_gather_launch(const void* table, int dtype,
                                 const int32_t* ids, const float* queries,
                                 float* out, int B, int K, long long N, int D,
                                 int path, int log2g, int per_lane,
-                                long long blocks, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+                                long long blocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
   if (dtype == 0) {
     err = launch<float>(static_cast<const float*>(table), ids, queries, out,
                         B, K, N, D, path, log2g, per_lane, blocks, s);

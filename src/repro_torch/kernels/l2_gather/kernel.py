@@ -80,7 +80,7 @@ def _launcher():
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_longlong, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         err = lib.l2_gather_error_string
         err.argtypes = [ctypes.c_int]
@@ -129,19 +129,12 @@ def l2_gather(table, ids, queries):
     out = torch.empty((B, K), dtype=torch.float32, device=table.device)
     if B == 0 or K == 0:
         return out
-    fn, err = _launcher()
     geo = launch_geometry(B, K, D, table.element_size(),
                           table.data_ptr() % 16 == 0
                           and queries.data_ptr() % 16 == 0)
-    dev = table.device.index if table.device.index is not None \
-        else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    code = fn(table.data_ptr(), _DTYPES[table.dtype], ids.data_ptr(),
-              queries.data_ptr(), out.data_ptr(), B, K, N, D, geo.path,
-              geo.group.bit_length() - 1, geo.per_lane, geo.grid[0], dev,
-              stream)
-    if code != 0:
-        raise RuntimeError(f"l2_gather launch failed: "
-                           f"{err(code).decode()} (cudaError {code})")
+    _build.launch("l2_gather", _launcher(), table.device, table.data_ptr(),
+                  _DTYPES[table.dtype], ids.data_ptr(), queries.data_ptr(),
+                  out.data_ptr(), B, K, N, D, geo.path,
+                  geo.group.bit_length() - 1, geo.per_lane, geo.grid[0])
     launches += 1
     return out

@@ -172,14 +172,13 @@ cudaError_t launch(const uint8_t* codes, const float* lut, const int32_t* ids,
 extern "C" int pq_adc_launch(const uint8_t* codes, const float* lut,
                              const int32_t* ids, float* out, int B, int C,
                              long long N, int m, int K, int vec16,
-                             int lut_async, int threads, int per, int device,
+                             int lut_async, int threads, int per,
                              void* stream) {
   if (threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
       (per != 1 && per != 2) || (vec16 && m != 16))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
   if (vec16)
     err = per == 1 ? launch<true, 1>(codes, lut, ids, out, B, C, N, m, K,
                                      threads, lut_async, s)

@@ -53,7 +53,7 @@ def _launcher():
                        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                        ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         err = lib.pq_adc_error_string
         err.argtypes = [ctypes.c_int]
@@ -101,18 +101,11 @@ def pq_adc(codes, lut, ids):
     out = torch.empty((B, C), dtype=torch.float32, device=codes.device)
     if B == 0 or C == 0:
         return out
-    fn, err = _launcher()
     geo = launch_geometry(B, C)
     vec16 = int(m == 16 and codes.data_ptr() % 16 == 0)
     lut_async = int(m * K % 4 == 0 and lut.data_ptr() % 16 == 0)
-    dev = codes.device.index if codes.device.index is not None \
-        else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    code = fn(codes.data_ptr(), lut.data_ptr(), ids.data_ptr(),
-              out.data_ptr(), B, C, N, m, K, vec16, lut_async, geo.block,
-              geo.per_thread, dev, stream)
-    if code != 0:
-        raise RuntimeError(f"pq_adc launch failed: {err(code).decode()} "
-                           f"(cudaError {code})")
+    _build.launch("pq_adc", _launcher(), codes.device, codes.data_ptr(),
+                  lut.data_ptr(), ids.data_ptr(), out.data_ptr(), B, C, N, m,
+                  K, vec16, lut_async, geo.block, geo.per_thread)
     launches += 1
     return out

@@ -142,9 +142,7 @@ extern "C" int row_gather_launch(const int32_t* table, const int32_t* h2s,
                                  const int32_t* ids, int32_t* out,
                                  long long lanes, long long S, long long N,
                                  int R, int path, int log2g, long long blocks,
-                                 int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (lanes < 1 || S < 1 || N < 1 || R < 1) return (int)cudaErrorInvalidValue;
   if (path == 1) {

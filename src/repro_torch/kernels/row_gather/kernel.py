@@ -65,8 +65,7 @@ def _launcher():
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
                        ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         err = lib.row_gather_error_string
         err.argtypes = [ctypes.c_int]
@@ -108,17 +107,10 @@ def row_gather(table, h2s, ids):
     out = torch.empty((B, W, R), dtype=torch.int32, device=table.device)
     if B * W == 0 or R == 0:
         return out
-    fn, err = _launcher()
     geo = launch_geometry(B * W, R, table.data_ptr() % 16 == 0
                           and out.data_ptr() % 16 == 0)
-    dev = table.device.index if table.device.index is not None \
-        else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    code = fn(table.data_ptr(), h2s.data_ptr(), ids.data_ptr(),
-              out.data_ptr(), B * W, S, N, R, geo.path,
-              geo.group.bit_length() - 1, geo.grid, dev, stream)
-    if code != 0:
-        raise RuntimeError(f"row_gather launch failed: {err(code).decode()} "
-                           f"(cudaError {code})")
+    _build.launch("row_gather", _launcher(), table.device, table.data_ptr(),
+                  h2s.data_ptr(), ids.data_ptr(), out.data_ptr(), B * W, S, N,
+                  R, geo.path, geo.group.bit_length() - 1, geo.grid)
     launches += 1
     return out

@@ -533,9 +533,7 @@ extern "C" int topk_merge_launch(const float* pool_d, const int32_t* pool_i,
                                  const int32_t* new_i, float* out_d,
                                  int32_t* out_i, uint8_t* out_v, int B, int L,
                                  int R, int path, int lanes, int per_lane,
-                                 long long grid, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+                                 long long grid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Args a{pool_d, pool_i, pool_v, new_d, new_i, out_d, out_i, out_v};
   if (B < 1 || L < 1 || R < 0) return (int)cudaErrorInvalidValue;

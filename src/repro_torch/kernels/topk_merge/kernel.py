@@ -63,7 +63,7 @@ def _launcher():
         lib = _build.load("topk_merge")
         fn = lib.topk_merge_launch
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
-            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_longlong, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         err = lib.topk_merge_error_string
         err.argtypes = [ctypes.c_int]
@@ -117,15 +117,10 @@ def topk_merge(pool_d, pool_i, pool_v, new_d, new_i):
     if B == 0 or L == 0:
         return out_d, out_i, out_v
     geo = launch_geometry(B, L, R)
-    fn, err = _launcher()
-    dev = dev_.index if dev_.index is not None else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    code = fn(pool_d.data_ptr(), pool_i.data_ptr(), pool_v.data_ptr(),
-              new_d.data_ptr(), new_i.data_ptr(), out_d.data_ptr(),
-              out_i.data_ptr(), out_v.data_ptr(), B, L, R, geo.path,
-              geo.lanes, geo.per_lane, geo.grid, dev, stream)
-    if code != 0:
-        raise RuntimeError(f"topk_merge launch failed: {err(code).decode()} "
-                           f"(cudaError {code})")
+    _build.launch("topk_merge", _launcher(), dev_, pool_d.data_ptr(),
+                  pool_i.data_ptr(), pool_v.data_ptr(), new_d.data_ptr(),
+                  new_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+                  out_v.data_ptr(), B, L, R, geo.path, geo.lanes,
+                  geo.per_lane, geo.grid)
     launches += 1
     return out_d, out_i, out_v

@@ -111,7 +111,8 @@ def test_default_config_needs_a_gpu():
 def test_config_keeps_every_reference_field():
     ref = set(JE.EngineConfig.__dataclass_fields__)
     port = set(TE.EngineConfig.__dataclass_fields__)
-    assert port - ref == {"device"} and ref <= port
+    # the port adds where the index lives and over how many cards
+    assert port - ref == {"device", "cards"} and ref <= port
 
 
 def test_unported_parts_raise(data, engine, tmp_path):
