@@ -4296,8 +4296,8 @@ def four_search(dev, seed, cards, n=262_144, d=96, b=1024, big=10_240,
     if rank == 0:
         emit("four_search_done", seconds=time.perf_counter() - t0,
              reduced=[f"rows a shard: Deep1B's ~3.9M a chip -> {n:,} (the "
-                      "host reverse-edge pass of the build, ROADMAP "
-                      "A.13.4); synthetic descriptors from the seed"])
+                      "build's time, ROADMAP E.2); synthetic "
+                      "descriptors from the seed"])
 
 
 def four_msturing(dev, seed, cards, shape=None, steps=5):

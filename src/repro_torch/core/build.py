@@ -1,19 +1,21 @@
 """Index construction (twin of ``repro.core.build``, paper §4.2).
 
 The KNN graph comes from brute-force distance GEMMs in row chunks on the
-device (exact, full fp32), then a host pass adds reverse edges with the
-reference's numpy random stream, then the cache tier is warmed with the
-highest in-degree vectors. With ``n_partitions > 1`` each partition gets
-its own exact KNN subgraph, and the partitions are merged within a
-bounded window: each row's candidates are its local neighbours and its
-nearest of a sampled set of global columns, scored by the ``l2_gather``
-kernel and pruned by ``rank_based_reorder``, a chunk of rows at a time.
+device (exact, full fp32), then a compiled host pass adds reverse edges
+with the reference's numpy random stream, then the cache tier is warmed
+with the highest in-degree vectors. With ``n_partitions > 1`` each
+partition gets its own exact KNN subgraph, and the partitions are merged
+within a bounded window: each row's candidates are its local neighbours
+and its nearest of a sampled set of global columns, scored by the
+``l2_gather`` kernel and pruned by ``rank_based_reorder``, a chunk of
+rows at a time.
 ``build_tiered_backend`` spills the graph to the disk tier.
 ``rank_based_reorder`` also prunes an insert's candidates to the
 out-degree.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 import time
 
@@ -25,10 +27,12 @@ from repro_torch.core.tiers import DiskTier, TieredBackend, TieredStore
 from repro_torch.core.topk import argsort, largest_k, smallest_k
 from repro_torch.core.types import (GraphState, IndexState, init_cache_state,
                                     init_graph_state, init_stats)
+from repro_torch.kernels import _build
 from repro_torch.kernels.ops import gather_l2, in_degree
 
 MERGE_CHUNK = 2048     # rows merged at once: rank_based_reorder's [rows,
 #                        C, R, C] comparison is 268 MB at C=64, R=32
+_reverse_edges_c = None   # the compiled pass's entry point, once loaded
 
 
 def pairwise_l2(a, b):
@@ -89,25 +93,47 @@ def rank_based_reorder(cand_ids, cand_dists, nbrs, degree):
     return sel
 
 
+def _reverse_edges_fn():
+    global _reverse_edges_c
+    if _reverse_edges_c is None:
+        fn = _build.load("reverse_edges").reverse_edges
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int64
+        _reverse_edges_c = fn
+    return _reverse_edges_c
+
+
 def _add_reverse_edges(nbrs_np: np.ndarray, n: int, rng: np.random.Generator):
     """Host-side exact reverse-edge pass (build time): for each edge u->v add
     v->u if v has a free slot, else replace a random slot with prob 1/2.
-    Makes the reference's random draws in the reference's order, over
-    Python lists (a per-element numpy call costs ~100x more)."""
-    R = nbrs_np.shape[1]
-    rows = nbrs_np[:n].tolist()
-    for u in range(n):
-        for v in rows[u]:
-            if v < 0:
-                continue
-            row = rows[v]
-            if u in row:
-                continue
-            if -1 in row:
-                row[row.index(-1)] = u
-            elif rng.random() < 0.5:
-                row[rng.integers(R)] = u
-    nbrs_np[:n] = np.asarray(rows, np.int32).reshape(n, R)
+    One call into a compiled loop (``csrc/reverse_edges.cpp``, built with
+    the host's C++ compiler on the first call) that makes the reference's
+    draws from ``rng``'s own bit generator in the reference's order: the
+    table, and ``rng``'s next draw, are the reference's. Updates
+    ``nbrs_np`` in place and returns it."""
+    if not (isinstance(nbrs_np, np.ndarray) and nbrs_np.dtype == np.int32
+            and nbrs_np.ndim == 2 and nbrs_np.flags.c_contiguous
+            and nbrs_np.flags.writeable):
+        raise ValueError("_add_reverse_edges: the neighbour table must be a "
+                         "writable C-contiguous [rows, R] int32 array, got "
+                         f"{getattr(nbrs_np, 'dtype', type(nbrs_np))} "
+                         f"{getattr(nbrs_np, 'shape', '')}")
+    rows, R = nbrs_np.shape
+    if not 0 <= n <= min(rows, 2 ** 31 - 1):
+        raise ValueError(f"_add_reverse_edges: n={n} outside the table's "
+                         f"{rows} rows")
+    fn = _reverse_edges_fn()
+    bits = rng.bit_generator
+    c = bits.ctypes
+    with bits.lock:
+        bad = fn(nbrs_np.ctypes.data, rows, n, R, c.state_address,
+                 ctypes.cast(c.next_double, ctypes.c_void_p),
+                 ctypes.cast(c.next_uint32, ctypes.c_void_p))
+    if bad >= 0:
+        raise IndexError(f"_add_reverse_edges: row {bad // R} holds id "
+                         f"{nbrs_np.flat[bad]}, past the table's {rows} rows")
     return nbrs_np
 
 

@@ -4,6 +4,10 @@ Integer-valued vectors make every GEMM distance exact in both
 frameworks, so the KNN rows (ties included), the reverse-edge pass (same
 numpy seed, same draws), the in-degrees and the warm cache must match.
 """
+import subprocess
+import sys
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,6 +16,9 @@ import torch
 from repro.core import build as JB
 from repro_torch.core import build as TB
 from repro_torch.core import topk
+from repro_torch.kernels import _build
+
+SRC = Path(__file__).resolve().parents[1] / "src"
 
 
 def ints(seed, n, d, lo=-3, hi=4):
@@ -43,16 +50,91 @@ def test_exact_knn_matches(n, k, chunk, force_select, monkeypatch):
        JB._exact_knn(jnp.asarray(v), k, chunk=chunk))
 
 
-def test_add_reverse_edges_matches():
-    """Same seed, same draws: free slots, full rows, reciprocal edges."""
-    rng = np.random.default_rng(3)
-    n, R = 400, 10
-    nbrs = rng.integers(0, n, (n + 50, R)).astype(np.int32)
-    nbrs[rng.random(nbrs.shape) < 0.2] = -1
-    nbrs[n:] = -1
-    got = TB._add_reverse_edges(nbrs.copy(), n, np.random.default_rng(7))
-    want = JB._add_reverse_edges(nbrs.copy(), n, np.random.default_rng(7))
+def reverse_edge_table(seed, n, rows, R, p_free):
+    """[rows, R] int32: the first n rows hold ids below n with a share
+    ``p_free`` of free (-1) slots, the rows past n are free."""
+    rng = np.random.default_rng(seed)
+    nbrs = np.full((rows, R), -1, np.int32)
+    if n:
+        nbrs[:n] = rng.integers(0, n, (n, R))
+        nbrs[:n][rng.random((n, R)) < p_free] = -1
+    return nbrs
+
+
+@pytest.mark.parametrize("n,rows,R,p_free", [
+    (400, 450, 10, 0.2),       # free slots and rows past n
+    (2000, 2000, 32, 0.05),    # the cells' out-degree
+    (2000, 2000, 7, 0.1),      # an odd R
+    (3000, 3000, 32, 0.0),     # no free slot: every add takes the draw
+    (300, 1000, 12, 0.0),      # n well below the table's rows
+    (500, 500, 1, 0.0),        # R = 1: numpy draws no slot
+    (0, 64, 8, 0.0),           # an empty graph
+    (100, 100, 8, 1.0),        # rows without edges
+], ids=["400x10", "R32", "R7_odd", "no_free_slot", "n_below_rows", "R1",
+        "empty", "no_edges"])
+def test_add_reverse_edges_matches(n, rows, R, p_free):
+    """Same seed, same draws: the table and the generator's state after
+    the pass (so its next draw) are the reference's."""
+    nbrs = reverse_edge_table(3, n, rows, R, p_free)
+    g_rng, w_rng = np.random.default_rng(7), np.random.default_rng(7)
+    got = TB._add_reverse_edges(nbrs.copy(), n, g_rng)
+    want = JB._add_reverse_edges(nbrs.copy(), n, w_rng)
     eq(got, want)
+    assert g_rng.bit_generator.state == w_rng.bit_generator.state
+    assert g_rng.random() == w_rng.random()
+    assert g_rng.integers(R or 1) == w_rng.integers(R or 1)
+
+
+@pytest.mark.parametrize("table,n", [
+    (np.full((50, 8), -1, np.int64), 50),                 # not int32
+    (np.full((50, 16), -1, np.int32)[:, ::2], 50),        # strided
+    (np.asfortranarray(np.full((50, 8), -1, np.int32)), 50),
+    (np.full(400, -1, np.int32), 50),                     # not 2-D
+    (np.full((50, 8), -1, np.int32), 51),                 # n past rows
+    (np.full((50, 8), -1, np.int32), -1),
+], ids=["int64", "strided", "fortran", "flat", "n_past_rows", "n_negative"])
+def test_add_reverse_edges_refuses_bad_tables(table, n):
+    """The compiled pass takes a raw pointer: what it cannot walk safely
+    is refused before the call, and the generator is left untouched."""
+    rng = np.random.default_rng(0)
+    state = rng.bit_generator.state
+    with pytest.raises(ValueError, match="_add_reverse_edges"):
+        TB._add_reverse_edges(table, n, rng)
+    assert rng.bit_generator.state == state
+
+
+def test_add_reverse_edges_refuses_ids_past_the_table():
+    nbrs = np.full((10, 4), -1, np.int32)
+    nbrs[3, 2] = 10
+    with pytest.raises(IndexError, match="row 3 holds id 10"):
+        TB._add_reverse_edges(nbrs, 10, np.random.default_rng(0))
+
+
+def test_reverse_edges_without_a_compiler_raises(tmp_path, monkeypatch):
+    """No fallback: with no library built and no C++ compiler the pass
+    raises, as a kernel does without nvcc."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(TB, "_reverse_edges_c", None)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match="no C\\+\\+ compiler"):
+        TB._add_reverse_edges(np.full((4, 2), -1, np.int32), 4,
+                              np.random.default_rng(0))
+    assert not any(tmp_path.iterdir())
+
+
+def test_importing_build_builds_nothing():
+    """The host loop builds on the first pass, never at import: an import
+    with no compiler on the PATH loads no library."""
+    code = ("from repro_torch.core import build; "
+            "from repro_torch.kernels import _build; "
+            "assert not _build._libs and build._reverse_edges_c is None; "
+            "assert set(_build.HOST_SOURCES) == {'reverse_edges'}; "
+            "assert not set(_build.HOST_SOURCES) & set(_build.SOURCES); "
+            "assert all((_build.KERNELS_DIR.parent / f).exists() "
+            "for fs in _build.HOST_SOURCES.values() for f in fs)")
+    subprocess.run([sys.executable, "-c", code], check=True,
+                   env={"PYTHONPATH": str(SRC), "PATH": "/nonexistent"})
 
 
 def test_compute_e_in_matches():
